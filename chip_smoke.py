@@ -7,22 +7,55 @@ Imports torch, numpy and the port package only (no JAX). Phases, one line
 each as they finish:
 
 1. device        card name and ``nvidia-smi`` name / power limit;
-2. build         the trunk kernel built from ``csrc/`` with nvcc;
+2. build         both trunk kernels built from ``csrc/`` with nvcc, in
+                 parallel; ptxas registers and shared memory;
 3. kernel_check  the ``int8_dx3`` trunk kernel against its plain PyTorch
                  version on the card, at B=1024 (bg 64) and B=24 (bg 8), on
                  stem outputs of real positions; 10x128 weights from a
                  numpy seed. Tolerance: bit-exact (the plain version repeats
                  the kernel's arithmetic); also FusedInference with the
-                 kernel against the same forward with the plain trunk;
+                 kernel against the same forward with the plain trunk.
+                 Then the ``matmul9`` kernel on the same inputs, with the
+                 same weights and with the trainer's initial (flax-init)
+                 weights: the whole trunk equal bit for bit to its 20 convs
+                 launched one by one (the kernel sums in a fixed order);
+                 each of the 20 convs against the plain conv on the same
+                 input, within PyTorch's bf16 default (rtol 1.6e-2, atol
+                 1e-5) plus the f32 summation bound of ``sum_error_bound``
+                 (only the order of the f32 sums differs, and near zero
+                 that alone exceeds 1e-5); the whole trunk's differences
+                 printed, beside those between the plain version on the
+                 card and two other orders of its f32 sums (on the CPU; on
+                 the card with taps and input channels reversed);
+                 FusedInference with the kernel against the plain trunk at
+                 the JAX package's ``matmul9`` bar (probs atol 0.03, value
+                 atol 0.05) on the flax-init weights (the He-normal tower's
+                 policy is so sharp that the summation order moves it by
+                 whole moves: printed, not checked);
 4. engine_check  random plies on CUDA and on the CPU: bit-identical boards;
 5. selfplay      ``play_games`` at 10x128 with ``int8_dx3``: 1024 games,
                  25 simulations, c_puct 1.0, temperature threshold 15, root
                  noise on; trunk launches must be 20 per network forward and
                  the trajectories must be sane;
-6. profile       one ply's search at B=1024 under torch.profiler: wall
+6. train_step_check  one SGD step at 10x128 from the trainer's initial
+                 weights, f32 compute, TF32 off, on one fixed batch of 1024
+                 real positions, on the card and on the CPU: loss rtol
+                 1e-4; every updated parameter and BatchNorm statistic rtol
+                 1e-4, atol 1e-6 (sums in other orders; the step moves a
+                 parameter by lr * grad, so f32's relative error in the
+                 gradient, which 20 BatchNorm backward passes raise to about
+                 1e-3 in some leaves, enters scaled by lr 0.006); each
+                 leaf's update error card vs CPU (relative L2) is printed;
+7. train         one ``AlphaZeroTrainer`` iteration at the flagship recipe
+                 (``configs/run_flagship_r5.yaml``) with self-play through
+                 ``matmul9`` and a checkpoint: launches = 20 x network
+                 forwards, buffer fill = valid plies, 24 finite losses,
+                 parameters moved, the checkpoint reloads exactly;
+8. profile       one ply's search at B=1024 under torch.profiler: wall
                  time, device-busy time and idle share, time by kernel;
-7. timing        the trunk kernel and its plain version at B=1024 (CUDA
-                 events), the bound, launches per self-play ply.
+9. timing        both trunk kernels, their plain versions and, for
+                 ``matmul9``, the same folded tower as 20 cuDNN convolutions,
+                 at B=1024 (CUDA events); the bounds, launches per forward.
 
 Then one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -32,9 +65,11 @@ the script exits non-zero; without CUDA it exits non-zero before any phase.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -45,24 +80,55 @@ from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dx3 import
     trunk_int8_dx3,
     trunk_int8_dx3_plain,
 )
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_matmul9 import (
+    conv_matmul9,
+    conv_plain,
+    sum_error_bound,
+    trunk_matmul9,
+    trunk_matmul9_plain,
+)
 from othello_reinforcement_learning_test_tpu_torch.models.convert import (
     from_jax_variables,
     init_numpy_variables,
+    init_train_variables,
 )
 from othello_reinforcement_learning_test_tpu_torch.models.fused_resnet import FusedInference
 from othello_reinforcement_learning_test_tpu_torch.models.resnet import OthelloResNet
 from othello_reinforcement_learning_test_tpu_torch.ops.bitboard import get_engine
 from othello_reinforcement_learning_test_tpu_torch.search import mcts
+from othello_reinforcement_learning_test_tpu_torch.train import trainer as trainer_lib
 from othello_reinforcement_learning_test_tpu_torch.train.self_play import play_games
 
 NUM_BLOCKS, NUM_FILTERS = 10, 128
 GAMES, SIMS = 1024, 25
 SEED = 0
-# H100 SXM dense peaks (NVIDIA data sheet): int8 tensor cores, HBM3
+# H100 SXM dense peaks (NVIDIA data sheet): int8 and bf16 tensor cores, HBM3
 INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
 BYTES_PER_S = 3.35e12
 TRUNK_SOURCE = "othello_reinforcement_learning_test_tpu_torch/csrc/trunk_int8_dx3.cu"
 TRUNK_REPLACES = "othello_reinforcement_learning_test_tpu/models/pallas_resnet.py:318"
+KERNEL_SOURCES = ("trunk_int8_dx3", "trunk_matmul9")
+M9_SOURCE = "othello_reinforcement_learning_test_tpu_torch/csrc/trunk_matmul9.cu"
+M9_REPLACES = "othello_reinforcement_learning_test_tpu/models/pallas_resnet.py:61"
+# configs/run_flagship_r5.yaml, with self-play through matmul9 and a
+# checkpoint after the one iteration this script runs
+FLAGSHIP = {
+    "game": {"size": 8, "rules": "reference"},
+    "model": {"num_blocks": 10, "num_filters": 128, "board_size": 8},
+    "training": {"batch_size": 1024, "lr": 0.006, "lr_schedule": "step", "lr_step_size": 350,
+                 "lr_gamma": 0.2, "weight_decay": 0.0001, "momentum": 0.9,
+                 "num_iterations": 1000, "self_play_episodes_per_iter": 1024,
+                 "train_epochs_per_iter": 24, "checkpoint_interval": 1,
+                 "replay_buffer_size": 800000, "augment_symmetries": False,
+                 "prioritized_replay": False},
+    "mcts": {"num_simulations": 64, "num_simulations_eval": 100, "c_puct": 1.25,
+             "dirichlet_alpha": 0.3, "dirichlet_epsilon": 0.25},
+    "self_play": {"temperature_threshold": 14},
+    "system": {"device": "auto", "seed": 5, "use_mixed_precision": True,
+               "self_play_net_variant": "matmul9"},
+}
+SCRATCH = build.BUILD_DIR / "chip_smoke_train"  # git-ignored
 
 
 def phase(phase_name: str, **fields) -> None:
@@ -129,15 +195,237 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def trunk_bound_ms(batch: int, layers: int, channels: int) -> tuple:
-    """Least time for one trunk forward on this card: int8 operations over
-    the int8 tensor-core rate, bytes (bf16 in and out, int8 weights, f32
-    scales and biases, each moved once) over the memory rate."""
+def trunk_bound_ms(batch: int, layers: int, channels: int, bf16: bool = False) -> tuple:
+    """Least time for one trunk forward on this card: operations over the
+    tensor-core rate of their type, bytes (bf16 in and out; int8 weights
+    with f32 scales and biases, or bf16 weights with f32 biases; each moved
+    once) over the memory rate."""
     rows = batch * 64
     ops = layers * rows * channels * channels * 9 * 2
-    nbytes = 2 * rows * channels * 2 + layers * (9 * channels * channels + 2 * channels * 4)
-    t_ops, t_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
+    if bf16:
+        w_bytes, rate = layers * (9 * channels * channels * 2 + channels * 4), BF16_OPS_PER_S
+    else:
+        w_bytes, rate = layers * (9 * channels * channels + 2 * channels * 4), INT8_OPS_PER_S
+    nbytes = 2 * rows * channels * 2 + w_bytes
+    t_ops, t_bytes = ops / rate * 1e3, nbytes / BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_matmul9(fused_m9, feats, weights: str, check_forward: bool) -> float:
+    """The matmul9 kernel against its plain version at B=1024 and B=24 (see
+    the module docstring); returns the largest per-conv difference."""
+    w, b = fused_m9.trunk_w, fused_m9.trunk_bias
+    max_abs_err = 0.0
+    for batch in (GAMES, 24):
+        h = fused_m9.stem(feats[:batch])
+        out_k = trunk_matmul9(h, w, b)
+        out_p = trunk_matmul9_plain(h, w, b)
+        # the same 20 convs launched one by one: the kernel sums in a fixed
+        # order, so the trunk's loop (layer, residual, in-place conv 1) must
+        # give this chain bit for bit
+        chain = h
+        for i in range(0, w.shape[0], 2):
+            y = conv_matmul9(chain, w[i], b[i])
+            chain = conv_matmul9(y, w[i + 1], b[i + 1], resid=chain)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out_k.float()).all()), "finite matmul9 output")
+        check(torch.equal(out_k, chain), f"trunk_matmul9 == its 20 convs chained at B={batch}")
+        trunk_diff = (out_k.float() - out_p.float()).abs()
+        n_diff, n_default, n_bad, conv_err = 0, 0, 0, 0.0
+        for i in range(w.shape[0]):  # every conv, on the plain chain's own inputs
+            resid = h if i % 2 else None
+            src = y if i % 2 else h
+            got = conv_matmul9(src, w[i], b[i], resid).float()
+            want = conv_plain(src, w[i], b[i], resid)
+            diff = (got - want.float()).abs()
+            allowed = 1e-5 + 1.6e-2 * want.float().abs()
+            n_diff += int((diff != 0).sum())
+            n_default += int((diff > allowed).sum())
+            n_bad += int((diff > allowed + sum_error_bound(src, w[i], b[i])).sum())
+            conv_err = max(conv_err, float(diff.max()))
+            if i % 2:
+                h = want
+            else:
+                y = want
+        max_abs_err = max(max_abs_err, conv_err)
+        phase("kernel_check", kernel="trunk_matmul9", weights=weights, batch=batch,
+              convs_differing=n_diff, convs_outside_bf16_default=n_default,
+              convs_outside_tolerance=n_bad, of=out_k.numel() * w.shape[0],
+              conv_max_abs_diff=conv_err, trunk_differing=int((trunk_diff != 0).sum()),
+              trunk_of=out_k.numel(), trunk_max_abs_diff=float(trunk_diff.max()),
+              trunk_equals_chained_convs=True)
+        check(n_bad == 0, f"every matmul9 conv within tolerance of the plain conv at "
+              f"B={batch} ({n_bad} elements outside)")
+    h = fused_m9.stem(feats)
+    plain = trunk_matmul9_plain(h, w, b)
+    lp_k, v_k = fused_m9(feats)
+    lp_p, v_p = fused_m9.heads(plain)
+    dp = float((lp_k.exp() - lp_p.exp()).abs().max())
+    dv = float((v_k - v_p).abs().max())
+    # second witnesses: the same plain version summing in other correct f32
+    # orders, to show how far two orders drift apart through the 20 convs.
+    # On the CPU; and on the card with the nine taps and the 128 input
+    # channels of every product summed in reverse order (board and kernel
+    # flipped, channels reversed: the same function)
+    r = torch.arange(w.shape[-1] - 1, -1, -1, device=h.device)
+    witnesses = {
+        "plain_cpu": trunk_matmul9_plain(h.cpu(), w.cpu(), b.cpu()).to(h.device),
+        "plain_reversed": trunk_matmul9_plain(
+            h.flip(1, 2)[..., r], w.flip(1, 2)[..., r, :][..., r], b[:, r])[..., r].flip(1, 2),
+    }
+    fields = {}
+    for wname, other in witnesses.items():
+        lp_o, v_o = fused_m9.heads(other)
+        diff = (plain.float() - other.float()).abs()
+        fields[wname] = {"trunk_differing": int((diff != 0).sum()),
+                         "trunk_max_abs_diff": float(diff.max()),
+                         "probs": float((lp_p.exp() - lp_o.exp()).abs().max()),
+                         "value": float((v_p - v_o).abs().max())}
+    phase("kernel_check", what="FusedInference(matmul9) kernel vs plain trunk", weights=weights,
+          batch=feats.shape[0], max_abs_diff_probs=dp, max_abs_diff_value=dv,
+          checked=check_forward, plain_vs=fields)
+    if check_forward:
+        check(dp <= 0.03 and dv <= 0.05, "FusedInference(matmul9) within probs 0.03, value 0.05")
+    return max_abs_err
+
+
+def train_step_check(engine, feats: torch.Tensor, rng: np.random.Generator) -> None:
+    """One f32 SGD step from the trainer's initial weights on one fixed
+    batch, on the card and on the CPU (see the module docstring for the
+    bars)."""
+    legal = engine.legal_actions(engine.initial_state((1,), device="cpu"))  # shape only
+    pi = rng.random((feats.shape[0], legal.shape[-1])).astype(np.float32)
+    pi /= pi.sum(-1, keepdims=True)
+    tv = rng.choice(np.array([-1.0, 0.0, 1.0], np.float32), (feats.shape[0], 1))
+    cfg = {"training": {"lr": 0.006, "momentum": 0.9, "weight_decay": 1e-4}}
+    start = from_jax_variables(init_train_variables(NUM_BLOCKS, NUM_FILTERS, SEED + 1))
+    runs = []
+    for dev in ("cuda", "cpu"):
+        m = OthelloResNet(NUM_BLOCKS, NUM_FILTERS)
+        m.load_state_dict(start)
+        m.to(dev)
+        state = trainer_lib.TrainState(m, trainer_lib.make_optimizer(m, cfg))
+        t0 = time.perf_counter()
+        metrics = trainer_lib.train_on_batch(
+            state, feats.to(dev), torch.from_numpy(pi).to(dev), torch.from_numpy(tv).to(dev),
+            trainer_lib.make_lr_schedule(cfg), torch.float32)
+        runs.append((float(metrics["loss"]),
+                     {k: t.cpu().double() for k, t in m.state_dict().items()
+                      if t.is_floating_point()}, time.perf_counter() - t0))
+    (loss_c, sd_c, s_c), (loss_h, sd_h, s_h) = runs
+    params = [k for k in sd_h if "running" not in k]
+    # worst relative L2 error of a parameter's update, card vs CPU
+    card_err = max(float((sd_c[k] - sd_h[k]).norm()
+                         / (sd_h[k] - start[k].double()).norm().clamp_min(1e-30)) for k in params)
+
+    def worst(names):  # largest |card - cpu| / (atol 1e-6 + rtol 1e-4 * |cpu|)
+        return max(float(((sd_c[k] - sd_h[k]).abs() / (1e-6 + 1e-4 * sd_h[k].abs())).max())
+                   for k in names)
+
+    params_worst = worst(params)
+    stats_worst = worst([k for k in sd_h if "running" in k])
+    phase("train_step_check", batch=feats.shape[0], loss_cuda=loss_c, loss_cpu=loss_h,
+          loss_rel_diff=abs(loss_c / loss_h - 1), params_worst_over_tolerance=params_worst,
+          stats_worst_over_tolerance=stats_worst, update_rel_err_card_vs_cpu=card_err,
+          cuda_s=round(s_c, 3), cpu_s=round(s_h, 3))
+    check(abs(loss_c / loss_h - 1) <= 1e-4, "train step loss on the card == CPU (rtol 1e-4)")
+    check(params_worst <= 1.0 and stats_worst <= 1.0,
+          "updated parameters and BatchNorm statistics on the card == CPU (rtol 1e-4, atol 1e-6)")
+
+
+def train_iteration(dev) -> int:
+    """One flagship-recipe training iteration through the matmul9 kernel,
+    and a reload of its checkpoint. Returns the kernel's launches."""
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    cfg = json.loads(json.dumps(FLAGSHIP))
+    cfg["paths"] = {"checkpoint_dir": str(SCRATCH / "models"), "log_dir": str(SCRATCH / "logs")}
+    tr = trainer_lib.AlphaZeroTrainer(cfg, log_cb=None)
+    check(tr.device.type == "cuda" and tr.variant == "matmul9", "trainer on the card, matmul9")
+    forwards, trajs, step_losses = 0, [], []
+    make_net, run_self_play, train_steps = tr.selfplay_net, tr.run_self_play, trainer_lib.train_steps
+
+    def counted_net():
+        net = make_net()
+
+        def f(x):
+            nonlocal forwards
+            forwards += 1
+            return net(x)
+        return f
+
+    def captured_self_play(n, **kw):
+        trajs.append(run_self_play(n, **kw))
+        return trajs[-1]
+
+    def captured_steps(*a, **kw):
+        step_losses.extend(train_steps(*a, **kw))
+        return step_losses
+
+    tr.selfplay_net, tr.run_self_play = counted_net, captured_self_play
+    trainer_lib.train_steps = captured_steps
+    before = {k: t.clone() for k, t in tr.model.state_dict().items()}
+    torch.cuda.synchronize()
+    trunk_matmul9.launches = 0
+    trunk_int8_dx3.launches = 0
+    t0 = time.perf_counter()
+    try:
+        scalars = tr._train_iteration(0, tr.episodes_per_iter, tr.num_iterations, [], [])
+    finally:
+        trainer_lib.train_steps = train_steps
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = trunk_matmul9.launches
+    valid = int(trajs[0].mask.sum())
+    losses = [float(m["loss"]) for m in step_losses]
+    moved = sum(not torch.equal(before[k], t) for k, t in tr.model.state_dict().items())
+    check(launches > 0 and launches == 2 * NUM_BLOCKS * forwards,
+          f"matmul9 launches {launches} == 20 x forwards {forwards}")
+    check(trunk_int8_dx3.launches == 0, "no int8 trunk in the matmul9 iteration")
+    check(tr.buffer.filled == valid, f"buffer fill {tr.buffer.filled} == valid plies {valid}")
+    check(len(losses) == 24 and all(np.isfinite(losses)), "24 finite losses")
+    check(moved > 0, "parameters moved")
+    path = SCRATCH / "models" / "checkpoint_iter_000001.pt"
+    check(path.is_file(), "checkpoint written")
+    t1 = time.perf_counter()
+    fresh = trainer_lib.AlphaZeroTrainer(cfg, log_cb=None)
+    fresh.load_checkpoint(str(path))
+    reload_s = time.perf_counter() - t1
+    same = (all(torch.equal(t, fresh.model.state_dict()[k]) for k, t in tr.model.state_dict().items())
+            and all(torch.equal(a["momentum_buffer"], b["momentum_buffer"]) for a, b in zip(
+                tr.state.optimizer.state_dict()["state"].values(),
+                fresh.state.optimizer.state_dict()["state"].values()))
+            and all(torch.equal(getattr(tr.buffer, f), getattr(fresh.buffer, f))
+                    for f in ("me", "opp", "pi", "value"))
+            and (tr.buffer.cursor, tr.buffer.filled) == (fresh.buffer.cursor, fresh.buffer.filled)
+            and torch.equal(tr.rng.get_state(), fresh.rng.get_state())
+            and torch.equal(tr.sample_rng.get_state(), fresh.sample_rng.get_state())
+            and (tr.state.step, tr.state.iteration) == (fresh.state.step, fresh.state.iteration))
+    check(same, "the checkpoint reloads into a fresh trainer with every tensor equal")
+    sp_s, sgd_s, ck_s = scalars["Time/self_play"], scalars["Time/train"], tr.last_checkpoint_seconds
+    phase("train", games=tr.episodes_per_iter, simulations=tr.num_simulations,
+          variant=tr.variant, compute_dtype=str(tr.compute_dtype), forwards=forwards,
+          trunk_launches=launches, valid_plies=valid, buffer_filled=tr.buffer.filled,
+          sgd_steps=len(losses), loss_first=losses[0], loss_last=losses[-1],
+          loss_mean=scalars["Loss/train"], params_moved=moved,
+          self_play_s=round(sp_s, 3), games_per_s=round(tr.episodes_per_iter / sp_s, 3),
+          sgd_s=round(sgd_s, 3), checkpoint_s=round(ck_s, 3),
+          checkpoint_mb=round(path.stat().st_size / 2 ** 20, 1),
+          reload_s=round(reload_s, 3), iteration_s=round(seconds, 3))
+    tr.close()
+    fresh.close()
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    return launches
+
+
+def cudnn_tower(h: torch.Tensor, w: list, b: torch.Tensor) -> torch.Tensor:
+    """The folded matmul9 tower as 20 bf16 cuDNN convolutions with ReLU and
+    the residual add: the library yardstick. h: (B, S, S, C), whose NCHW
+    view is channels last; w: per layer OIHW weights, channels last."""
+    x = h.permute(0, 3, 1, 2)
+    for i in range(0, len(w), 2):
+        y = torch.relu(torch.nn.functional.conv2d(x, w[i], b[i], padding=1))
+        x = torch.relu(x + torch.nn.functional.conv2d(y, w[i + 1], b[i + 1], padding=1))
+    return x
 
 
 def main() -> int:
@@ -157,9 +445,15 @@ def main() -> int:
     phase("device", name=name, count=torch.cuda.device_count(), nvidia_smi=smi,
           torch=torch.__version__, cuda=torch.version.cuda)
 
-    built = build.build("trunk_int8_dx3")
-    ptxas = [ln.strip() for ln in built.log.splitlines() if "registers" in ln or "smem" in ln]
-    phase("build", seconds=round(built.seconds, 2), library=built.path.name, ptxas=ptxas)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        builds = dict(zip(KERNEL_SOURCES, pool.map(build.build, KERNEL_SOURCES)))
+    for kname, built in builds.items():
+        ptxas = [ln.strip() for ln in built.log.splitlines()
+                 if "registers" in ln or "smem" in ln or "spill" in ln]
+        phase("build", kernel=kname, seconds=round(built.seconds, 2),
+              library=built.path.name, ptxas=ptxas)
+    phase("build", wall_seconds=round(time.perf_counter() - t0, 2))
 
     # 10x128 weights from a numpy seed, through the flax-layout converter
     model = OthelloResNet(NUM_BLOCKS, NUM_FILTERS)
@@ -197,6 +491,16 @@ def main() -> int:
     check(lp_k.shape == (GAMES, 65) and v_k.shape == (GAMES, 1), "output shapes")
     check(bool(torch.allclose(lp_k.exp().sum(-1), torch.ones(GAMES, device=dev), atol=1e-4)),
           "policy sums to 1")
+    # matmul9 on the same He-normal weights, whose 20-conv tower amplifies
+    # summation-order differences into whole moves of the policy, then on
+    # the trainer's initial weights, the network the train phase plays with
+    m9_max_abs_err = check_matmul9(FusedInference(model, variant="matmul9"), feats,
+                                   "he_normal", check_forward=False)
+    model_t = OthelloResNet(NUM_BLOCKS, NUM_FILTERS)
+    model_t.load_state_dict(from_jax_variables(init_train_variables(NUM_BLOCKS, NUM_FILTERS, SEED)))
+    fused_m9 = FusedInference(model_t.to(dev), variant="matmul9")
+    m9_max_abs_err = max(m9_max_abs_err, check_matmul9(fused_m9, feats, "flax_init",
+                                                       check_forward=True))
 
     # engine: the same random plies on the card and on the CPU
     n_games, n_plies = 512, 130
@@ -227,6 +531,7 @@ def main() -> int:
 
     torch.cuda.synchronize()
     trunk_int8_dx3.launches = 0
+    trunk_matmul9.launches = 0
     t0 = time.perf_counter()
     traj = play_games(engine, net, GAMES, SIMS, c_puct=1.0, temperature_threshold=15,
                       add_noise=True, seed=SEED, device=dev)
@@ -236,6 +541,7 @@ def main() -> int:
     mask = traj.mask
     plies = int(mask.any(dim=0).sum())
     check(launches > 0, "self-play launched the trunk kernel")
+    check(trunk_matmul9.launches == 0, "no matmul9 trunk in the int8_dx3 self-play")
     check(launches == layers * forwards, f"launches {launches} == {layers} x forwards {forwards}")
     check(forwards == 1 + plies * SIMS, "one root forward, then one per simulation")
     check(not bool((mask[:, 1:] & ~mask[:, :-1]).any()), "masks are a prefix")
@@ -256,12 +562,24 @@ def main() -> int:
           black_wins=int((wins > 0).sum()), white_wins=int((wins < 0).sum()),
           draws=int((wins == 0).sum()))
 
-    # timing at the main path's shape (B=1024)
+    # the training path: one f32 step card vs CPU, then one flagship iteration
+    train_step_check(engine, feats.cpu(), rng)
+    m9_launches = train_iteration(dev)
+
+    # timing at the main paths' shape (B=1024)
     h = fused.stem(feats)
     kernel_ms = time_ms(lambda: trunk_int8_dx3(h, w, ws, b), reps=20)
     plain_ms = time_ms(lambda: trunk_int8_dx3_plain(h, w, ws, b), reps=3, warmup=1)
     forward_ms = time_ms(lambda: fused(feats), reps=20)
     bound_ms, bound_by = trunk_bound_ms(GAMES, layers, NUM_FILTERS)
+    h9, w9, b9 = fused_m9.stem(feats), fused_m9.trunk_w, fused_m9.trunk_bias
+    w_oihw = [w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last) for w in w9]
+    b_bf16 = b9.to(torch.bfloat16)
+    m9_ms = time_ms(lambda: trunk_matmul9(h9, w9, b9), reps=20)
+    m9_plain_ms = time_ms(lambda: trunk_matmul9_plain(h9, w9, b9), reps=3, warmup=1)
+    m9_forward_ms = time_ms(lambda: fused_m9(feats), reps=20)
+    cudnn_ms = time_ms(lambda: cudnn_tower(h9, w_oihw, b_bf16), reps=20)
+    m9_bound_ms, m9_bound_by = trunk_bound_ms(GAMES, layers, NUM_FILTERS, bf16=True)
     boards = random_positions(engine, GAMES, 20, rng, dev)
     phase("profile", what=f"one search at B={GAMES}, {SIMS} simulations, 20 plies in",
           **profile_search(engine, fused, boards))
@@ -269,12 +587,22 @@ def main() -> int:
           bound_ms=bound_ms, bound_by=bound_by, fused_forward_ms=forward_ms,
           launches_per_forward=layers, launches_per_ply=launches / plies,
           forward_share_of_selfplay=forward_ms * forwards / 1e3 / seconds)
+    phase("timing", kernel="trunk_matmul9", batch=GAMES, kernel_ms=m9_ms,
+          plain_ms=m9_plain_ms, bound_ms=m9_bound_ms, bound_by=m9_bound_by,
+          fused_forward_ms=m9_forward_ms, launches_per_forward=layers,
+          library_ms=cudnn_ms, library="cuDNN tower: 20 bf16 F.conv2d calls (channels last) "
+          "with ReLU and the residual add, not one call")
 
     kernels = [{
         "name": "trunk_int8_dx3", "route": "cuda", "source": TRUNK_SOURCE,
         "replaces": TRUNK_REPLACES, "launches": launches,
         "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }, {
+        "name": "trunk_matmul9", "route": "cuda", "source": M9_SOURCE,
+        "replaces": M9_REPLACES, "launches": m9_launches,
+        "max_abs_err": m9_max_abs_err, "ms": m9_ms, "plain_ms": m9_plain_ms,
+        "bound_ms": m9_bound_ms, "bound_by": m9_bound_by, "library_ms": cudnn_ms,
     }]
     phase("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,168 @@
+"""The bf16 ``matmul9`` residual trunk: CUDA kernel wrapper and plain version.
+
+Replaces the Pallas TPU kernel ``_trunk_kernel``
+(``othello_reinforcement_learning_test_tpu/models/pallas_resnet.py:61``),
+reached through ``fused_trunk`` (variant ``"matmul9"``). The kernel is
+``csrc/trunk_matmul9.cu``; its note states the bound and the design.
+
+:func:`trunk_matmul9` launches the kernel for a CUDA tensor and uses
+:func:`trunk_matmul9_plain` only for a tensor on the CPU. The plain version
+takes the same steps as the kernel (the nine shifted products of
+bf16-valued tensors summed in f32 from the bias, the ReLU, the residual add
+in f32, the bf16 roundings in the same places); it sums in another order,
+so the two agree to bf16 rounding, not bit for bit. It is the reference the
+kernel is held against, not a speed yardstick.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+
+# 3x3 neighbourhood offsets, row-major as the HWIO kernel's (kh, kw) axes
+OFFSETS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+
+
+def conv3x3(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """One folded conv, plain PyTorch. h: (B, S, S, C) bf16; w: (3, 3, C, C)
+    bf16; bias: (C,) f32. Returns the f32 accumulator ``bias + sum_k
+    shift_k(h) @ w_k`` (each product of bf16 values exact in f32)."""
+    B, S, _, C = h.shape
+    hp = F.pad(h.to(torch.float32), (0, 0, 1, 1, 1, 1))
+    wf = w.to(torch.float32)
+    acc = bias.expand(B * S * S, C)
+    for dy, dx in OFFSETS:
+        acc = acc + hp[:, 1 + dy:1 + dy + S, 1 + dx:1 + dx + S, :].reshape(-1, C) \
+            @ wf[1 + dy, 1 + dx]
+    return acc.reshape(B, S, S, C)
+
+
+def conv_plain(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+               resid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One conv with its epilogue, bf16 out: ``relu(acc)`` for the first
+    conv of a block, ``relu(f32(resid) + acc)`` for the second."""
+    z = conv3x3(h, w, bias)
+    if resid is not None:
+        z = resid.to(torch.float32) + z
+    return torch.relu(z).to(torch.bfloat16)
+
+
+def sum_error_bound(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """How far two correct f32 accumulations of one conv may differ: each
+    sums n = 9C + 10 terms (the products, the nine tap adds, the bias) and
+    errs by at most n * 2^-24 * sum|terms| (the standard bound for a
+    floating-point sum), so two of them by twice that. sum|terms| is the
+    same conv on absolute values. Near an output of zero this exceeds
+    PyTorch's bf16 ``atol`` of 1e-5, whatever the two summation orders are."""
+    n = 9 * h.shape[-1] + 10
+    return 2 * n * 2.0 ** -24 * conv3x3(h.abs(), w.abs(), bias.abs())
+
+
+def trunk_matmul9_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: bf16 (B, S, S, C) in, bf16 out."""
+    h = x
+    for i in range(w.shape[0] // 2):
+        y = conv_plain(h, w[2 * i], bias[2 * i])
+        h = conv_plain(y, w[2 * i + 1], bias[2 * i + 1], resid=h)
+    return h
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, blocks: bool = True) -> int:
+    if x.dim() != 4 or x.shape[1] != x.shape[2] or x.dtype != torch.bfloat16:
+        raise ValueError(f"x must be bf16 (B, S, S, C), got {x.dtype} {tuple(x.shape)}")
+    C = x.shape[3]
+    if w.dim() != 5 or w.shape[1:] != (3, 3, C, C) or w.dtype != torch.bfloat16 \
+            or (blocks and w.shape[0] % 2) or w.shape[0] == 0:
+        raise ValueError(f"w must be bf16 (L, 3, 3, {C}, {C}) with even L > 0, "
+                         f"got {w.dtype} {tuple(w.shape)}")
+    L = w.shape[0]
+    if bias.shape != (L, C) or bias.dtype != torch.float32:
+        raise ValueError(f"bias must be f32 ({L}, {C}), got {bias.dtype} {tuple(bias.shape)}")
+    for t in (w, bias):
+        if t.device != x.device:
+            raise ValueError(f"all tensors must be on {x.device}, got {t.device}")
+    for t in (x, w, bias):
+        if not t.is_contiguous():
+            raise ValueError("all tensors must be contiguous")
+    return L
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("trunk_matmul9")
+    if lib.trunk_m9_conv.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.trunk_m9_conv.argtypes = [p] * 5 + [i] * 2 + [p]
+        lib.trunk_m9_conv.restype = i
+    return lib
+
+
+def _launch(lib, h, resid, out, w_layer, bias_layer) -> None:
+    rc = lib.trunk_m9_conv(h.data_ptr(), None if resid is None else resid.data_ptr(),
+                           out.data_ptr(), w_layer.data_ptr(), bias_layer.data_ptr(),
+                           h.shape[0], int(resid is not None),
+                           torch.cuda.current_stream(h.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"trunk_matmul9 conv kernel failed: CUDA error {rc}")
+    trunk_matmul9.launches += 1
+
+
+def _check_board(x: torch.Tensor) -> None:
+    S, C = x.shape[2], x.shape[3]
+    if (S, C) != (8, 128):
+        raise ValueError(f"the CUDA kernel takes 8x8 boards and 128 channels, got S={S} C={C}")
+
+
+def trunk_matmul9(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """bf16 residual trunk. x: (B, S, S, C) bf16; w: (L, 3, 3, C, C) bf16
+    folded weights (HWIO); bias: (L, C) f32. Returns bf16 (B, S, S, C).
+
+    On a CUDA tensor this launches the hand-written kernel (one launch per
+    conv, each counted in ``trunk_matmul9.launches``) or raises; the plain
+    version runs only for a tensor on the CPU.
+    """
+    L = _check(x, w, bias)
+    if x.device.type == "cpu":
+        return trunk_matmul9_plain(x, w, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check_board(x)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        y = torch.empty_like(x)
+        out = torch.empty_like(x)
+        for i in range(L // 2):
+            h = x if i == 0 else out  # the block's input; conv 1 updates out in place
+            _launch(lib, h, None, y, w[2 * i], bias[2 * i])
+            _launch(lib, y, h, out, w[2 * i + 1], bias[2 * i + 1])
+    return out
+
+
+trunk_matmul9.launches = 0
+
+
+def conv_matmul9(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                 resid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One conv of the trunk with its epilogue (see :func:`conv_plain`):
+    h, resid (B, S, S, C) bf16; w (3, 3, C, C) bf16; bias (C,) f32. Launches
+    the kernel for a CUDA tensor (counted in ``trunk_matmul9.launches``),
+    the plain version for a CPU one. Lets a check hold each conv against
+    the plain version on the same input."""
+    _check(h, w[None], bias[None], blocks=False)
+    if resid is not None and (resid.shape != h.shape or resid.dtype != h.dtype
+                              or resid.device != h.device or not resid.is_contiguous()):
+        raise ValueError("resid must be a contiguous tensor like h")
+    if h.device.type == "cpu":
+        return conv_plain(h, w, bias, resid)
+    if h.device.type != "cuda":
+        raise ValueError(f"unsupported device {h.device}")
+    _check_board(h)
+    lib = _library()
+    with torch.cuda.device(h.device):
+        out = torch.empty_like(h)
+        _launch(lib, h, resid, out, w, bias)
+    return out

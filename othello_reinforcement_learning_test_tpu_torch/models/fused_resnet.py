@@ -4,10 +4,12 @@ Host half of ``othello_reinforcement_learning_test_tpu/models/
 pallas_resnet.py``: BatchNorm folding, the dx3 weight relayout, the
 block-size rule and ``FusedInference``. The stem and the two heads are
 plain bf16 PyTorch ops, as the JAX package leaves them to XLA; the residual
-tower goes through ``kernels/trunk_int8_dx3.py``.
+tower goes through a hand-written kernel: ``kernels/trunk_int8_dx3.py``
+(variant ``int8_dx3``) or ``kernels/trunk_matmul9.py`` (variant
+``matmul9``).
 
-Only the ``int8_dx3`` variant is ported. ``ROADMAP.md`` lists the other
-nine variants of the JAX package's ``FusedInference.VARIANTS`` as not yet
+Only those two variants are ported. ``ROADMAP.md`` lists the other eight
+variants of the JAX package's ``FusedInference.VARIANTS`` as not yet
 ported.
 """
 
@@ -18,9 +20,11 @@ from typing import Tuple
 import torch
 
 from ..kernels.trunk_int8_dx3 import DEFAULT_BLOCK_GAMES, trunk_int8_dx3
+from ..kernels.trunk_matmul9 import trunk_matmul9
 from .resnet import OthelloResNet
 
 BN_EPS = 1e-5
+PORTED_VARIANTS = ("int8_dx3", "matmul9")
 
 
 def _bn_affine(bn: torch.nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -56,17 +60,23 @@ def dx3_weights(w_int8: torch.Tensor) -> torch.Tensor:
 
 
 class FusedInference:
-    """Eval-mode ``(B, S, S, 3) -> (log_probs (B, A), value (B, 1))`` with
-    the int8 trunk kernel; the weights are folded, quantized and relaid out
-    once, from ``model``'s current parameters, on ``model``'s device. The
-    activation scale is taken per block of 64 games (halved until it divides
-    the batch), the JAX package's default for ``int8_dx3``."""
+    """Eval-mode ``(B, S, S, 3) -> (log_probs (B, A), value (B, 1))`` with a
+    trunk kernel. The weights are folded (and for ``int8_dx3`` quantized and
+    relaid out) once, here, from ``model``'s current parameters, on
+    ``model``'s device: build a new instance after the parameters change.
+
+    - ``int8_dx3``: the activation scale is taken per block of 64 games
+      (halved until it divides the batch), the JAX package's default;
+    - ``matmul9``: bf16 folded weights (L, 3, 3, C, C) and f32 biases
+      (L, C); the JAX kernel's block of 32 games has no numeric effect, as
+      there is no per-block scale.
+    """
 
     def __init__(self, model: OthelloResNet, variant: str = "int8_dx3"):
-        if variant != "int8_dx3":
+        if variant not in PORTED_VARIANTS:
             raise ValueError(
                 f"variant {variant!r} is not ported: ROADMAP.md lists it as "
-                "not yet ported; only 'int8_dx3' is")
+                f"not yet ported; only {PORTED_VARIANTS} are")
         # quantized.py imports fold_block_params from this module
         from .quantized import quantize_trunk
 
@@ -77,10 +87,14 @@ class FusedInference:
             stem = model.conv_block
             self.stem_w = stem.conv.weight.to(bf16)
             self.stem_g, self.stem_b = _bn_affine(stem.bn)
-            qt = quantize_trunk(model)
-            self.trunk_w = dx3_weights(qt.w_int8)
-            self.trunk_scale = qt.w_scale.contiguous()
-            self.trunk_bias = qt.bias.contiguous()
+            if variant == "int8_dx3":
+                qt = quantize_trunk(model)
+                self.trunk_w = dx3_weights(qt.w_int8)
+                self.trunk_scale = qt.w_scale.contiguous()
+                self.trunk_bias = qt.bias.contiguous()
+            else:
+                w, b = fold_block_params(model)
+                self.trunk_w, self.trunk_bias = w.contiguous(), b.contiguous()
             ph, vh = model.policy_head, model.value_head
             self.p_conv = ph.conv.weight[:, :, 0, 0].t().to(bf16)  # (C, 2)
             self.p_g, self.p_b = _bn_affine(ph.bn)
@@ -102,6 +116,8 @@ class FusedInference:
         return h.to(torch.bfloat16).contiguous()
 
     def trunk(self, h: torch.Tensor) -> torch.Tensor:
+        if self.variant == "matmul9":
+            return trunk_matmul9(h, self.trunk_w, self.trunk_bias)
         return trunk_int8_dx3(h, self.trunk_w, self.trunk_scale,
                               self.trunk_bias, DEFAULT_BLOCK_GAMES)
 

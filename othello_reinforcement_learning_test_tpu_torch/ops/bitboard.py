@@ -274,6 +274,28 @@ class OthelloEngine:
         return self._planes(state.me, state.opp,
                             self.legal_squares(state.me, state.opp))
 
+    # -- symmetries ---------------------------------------------------------------
+    def symmetries(self, features: torch.Tensor,
+                   pi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """All 8 D4 images of ``(features (..., S, S, C), pi (..., S*S+1))``,
+        stacked on a new axis before the spatial axes: for k in 0..3,
+        rot90(k), then rot90(k) with a horizontal flip. The pass action stays
+        in place."""
+        s = self.size
+        pi_grid = pi[..., : s * s].reshape(*pi.shape[:-1], s, s)
+        pi_pass = pi[..., s * s:]
+        feats, pis = [], []
+        for k in range(4):
+            fb = torch.rot90(features, k, dims=(-3, -2))
+            pb = torch.rot90(pi_grid, k, dims=(-2, -1))
+            for flip in (False, True):
+                fb2 = torch.flip(fb, dims=(-2,)) if flip else fb
+                pb2 = torch.flip(pb, dims=(-1,)) if flip else pb
+                feats.append(fb2)
+                pis.append(torch.cat([pb2.reshape(*pi.shape[:-1], s * s), pi_pass], dim=-1))
+        return (torch.stack(feats, dim=features.dim() - 3),
+                torch.stack(pis, dim=pi.dim() - 1))
+
 
 @functools.lru_cache(maxsize=None)
 def get_engine(size: int = 8, rules: str = "reference") -> OthelloEngine:

@@ -3,8 +3,19 @@ CUDA card. Imports no JAX, so it runs where only torch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
-Without a card every test skips. Tolerance: bit-exact (each plain version
-repeats its kernel's arithmetic).
+Without a card every test skips. Tolerances:
+- ``int8_dx3``: bit-exact (the plain version repeats the kernel's
+  arithmetic);
+- ``matmul9``: the whole trunk equal bit for bit to its 20 convs launched
+  one by one (no atomics, a fixed summation order); each conv against the
+  plain conv on the same input within
+  PyTorch's bf16 default (rtol 1.6e-2, atol 1e-5) plus the f32 summation
+  bound (``sum_error_bound``): the products are exact and only the order
+  of the f32 sums differs, which near an output of zero alone exceeds
+  1e-5. Through the 20 convs of a 10x128 tower such differences grow, as
+  they do between any two summation orders, so the whole forward is held
+  to the JAX package's ``matmul9`` bar (probs atol 0.03, value atol 0.05)
+  with the trainer's initial weights.
 """
 
 import numpy as np
@@ -15,9 +26,17 @@ from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dx3 import
     trunk_int8_dx3,
     trunk_int8_dx3_plain,
 )
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_matmul9 import (
+    conv_matmul9,
+    conv_plain,
+    sum_error_bound,
+    trunk_matmul9,
+    trunk_matmul9_plain,
+)
 from othello_reinforcement_learning_test_tpu_torch.models.convert import (
     from_jax_variables,
     init_numpy_variables,
+    init_train_variables,
 )
 from othello_reinforcement_learning_test_tpu_torch.models.fused_resnet import FusedInference
 from othello_reinforcement_learning_test_tpu_torch.models.resnet import OthelloResNet
@@ -53,3 +72,74 @@ def test_fused_inference_kernel_matches_plain_trunk(fused):
     lp_p, v_p = fused.heads(trunk_int8_dx3_plain(fused.stem(x), fused.trunk_w,
                                                  fused.trunk_scale, fused.trunk_bias))
     assert torch.equal(lp, lp_p) and torch.equal(v, v_p)
+
+
+@pytest.fixture(scope="module")
+def fused_m9():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    m = OthelloResNet(10, 128)
+    m.load_state_dict(from_jax_variables(init_train_variables(10, 128, seed=0)))
+    return FusedInference(m.cuda(), variant="matmul9")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1024, 24, 3])
+def test_matmul9_convs_match_plain(fused_m9, batch):
+    x = torch.from_numpy(np.random.default_rng(batch).integers(0, 2, (batch, 8, 8, 3))
+                         .astype(np.float32)).cuda()
+    h = fused_m9.stem(x)
+    w, b = fused_m9.trunk_w, fused_m9.trunk_bias
+    before = trunk_matmul9.launches
+    out = trunk_matmul9(h, w, b)
+    torch.cuda.synchronize()
+    assert trunk_matmul9.launches == before + 20
+    assert out.shape == h.shape and bool(torch.isfinite(out.float()).all())
+    # the kernel sums in a fixed order, so the trunk's loop (layer, residual,
+    # conv 1 in place) must equal its 20 convs launched one by one
+    chain = h
+    for i in range(0, 20, 2):
+        y = conv_matmul9(chain, w[i], b[i])
+        chain = conv_matmul9(y, w[i + 1], b[i + 1], resid=chain)
+    assert torch.equal(out, chain)
+
+    def assert_conv_close(got, want, src, layer):
+        diff = (got.float() - want.float()).abs()
+        allowed = 1e-5 + 1.6e-2 * want.float().abs() + sum_error_bound(src, w[layer], b[layer])
+        assert int((diff > allowed).sum()) == 0, f"conv {layer}: max diff {float(diff.max())}"
+
+    for i in range(10):  # every conv on the plain chain's own inputs
+        y = conv_plain(h, w[2 * i], b[2 * i])
+        assert_conv_close(conv_matmul9(h, w[2 * i], b[2 * i]), y, h, 2 * i)
+        h_next = conv_plain(y, w[2 * i + 1], b[2 * i + 1], h)
+        assert_conv_close(conv_matmul9(y, w[2 * i + 1], b[2 * i + 1], resid=h), h_next, y,
+                          2 * i + 1)
+        h = h_next
+
+
+@pytest.mark.cuda
+def test_matmul9_fused_inference_matches_plain_trunk(fused_m9):
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 2, (256, 8, 8, 3))
+                         .astype(np.float32)).cuda()
+    lp, v = fused_m9(x)
+    lp_p, v_p = fused_m9.heads(trunk_matmul9_plain(fused_m9.stem(x), fused_m9.trunk_w,
+                                                   fused_m9.trunk_bias))
+    torch.testing.assert_close(lp.exp(), lp_p.exp(), rtol=0, atol=0.03)
+    torch.testing.assert_close(v, v_p, rtol=0, atol=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["not_contiguous", "x_dtype", "w_dtype"])
+def test_matmul9_wrapper_refuses_bad_input(fused_m9, bad):
+    h = torch.zeros((4, 8, 8, 128), dtype=torch.bfloat16, device="cuda")
+    w, b = fused_m9.trunk_w, fused_m9.trunk_bias
+    if bad == "not_contiguous":
+        h = torch.zeros((4, 8, 8, 256), dtype=torch.bfloat16, device="cuda")[..., ::2]
+    elif bad == "x_dtype":
+        h = h.float()
+    else:
+        w = w.float()
+    before = trunk_matmul9.launches
+    with pytest.raises(ValueError):
+        trunk_matmul9(h, w, b)
+    assert trunk_matmul9.launches == before

@@ -146,7 +146,7 @@ def test_block_size_rule(batch, block_games, expected):
     assert block_size(batch, block_games) == expected
 
 
-@pytest.mark.parametrize("variant", ["matmul9", "wide", "int8", "int8_bf16", "int8_m9",
+@pytest.mark.parametrize("variant", ["wide", "int8", "int8_bf16", "int8_m9",
                                      "int8_patch", "int8_flat", "int8_dxcat", "int8_xla"])
 def test_unported_variants_raise(variant):
     m = port_model(init_numpy_variables(1, 16, seed=0), 1, 16)
