@@ -7,8 +7,9 @@ Imports torch, numpy and the port package only (no JAX). Phases, one line
 each as they finish:
 
 1. device        card name and ``nvidia-smi`` name / power limit;
-2. build         both trunk kernels built from ``csrc/`` with nvcc, in
-                 parallel; ptxas registers and shared memory;
+2. build         the four kernels (``trunk_int8_dx3``, ``trunk_matmul9``,
+                 ``trunk_int8``, ``random_step``) built from ``csrc/`` with
+                 nvcc, in parallel; ptxas registers and shared memory;
 3. kernel_check  the ``int8_dx3`` trunk kernel against its plain PyTorch
                  version on the card, at B=1024 (bg 64) and B=24 (bg 8), on
                  stem outputs of real positions; 10x128 weights from a
@@ -31,13 +32,31 @@ each as they finish:
                  the JAX package's ``matmul9`` bar (probs atol 0.03, value
                  atol 0.05) on the flax-init weights (the He-normal tower's
                  policy is so sharp that the summation order moves it by
-                 whole moves: printed, not checked);
+                 whole moves: printed, not checked).
+                 Then the ``trunk_int8`` kernel, both ``stage_bf16``
+                 settings, against its plain version at B=1024 (bg 16) and
+                 B=24 (bg 8) on the same stem outputs: bit-exact; and
+                 FusedInference(int8) with the kernel against the plain
+                 trunk. Then ``random_step`` against ``random_step_plain``
+                 on the card, fed the same words, every ply of 4,096 games
+                 to their end for sizes 8, 6 and 4 under both rule sets,
+                 then of the bench's 4,194,304 games at 8x8: bit-exact
+                 boards and ``live``; and ``play_random_games``
+                 through the kernel against the plain loop on the CPU fed
+                 the same words (16,384 games): equal final boards, steps
+                 and plies;
 4. engine_check  random plies on CUDA and on the CPU: bit-identical boards;
-5. selfplay      ``play_games`` at 10x128 with ``int8_dx3``: 1024 games,
+5. search_check  ``play_games`` on the card and on the CPU with a
+                 deterministic stub network (its log-softmax taken in
+                 float64: in float32 the card's differs from the CPU's by an
+                 ulp), 128 games, 8 simulations, no root noise, temperature
+                 threshold 0: the stub's outputs and every trajectory field
+                 (boards, pi targets, outcomes, masks) bit-identical;
+6. selfplay      ``play_games`` at 10x128 with ``int8_dx3``: 1024 games,
                  25 simulations, c_puct 1.0, temperature threshold 15, root
                  noise on; trunk launches must be 20 per network forward and
                  the trajectories must be sane;
-6. train_step_check  one SGD step at 10x128 from the trainer's initial
+7. train_step_check  one SGD step at 10x128 from the trainer's initial
                  weights, f32 compute, TF32 off, on one fixed batch of 1024
                  real positions, on the card and on the CPU: loss rtol
                  1e-4; every updated parameter and BatchNorm statistic rtol
@@ -46,16 +65,24 @@ each as they finish:
                  gradient, which 20 BatchNorm backward passes raise to about
                  1e-3 in some leaves, enters scaled by lr 0.006); each
                  leaf's update error card vs CPU (relative L2) is printed;
-7. train         one ``AlphaZeroTrainer`` iteration at the flagship recipe
+8. train         one ``AlphaZeroTrainer`` iteration at the flagship recipe
                  (``configs/run_flagship_r5.yaml``) with self-play through
                  ``matmul9`` and a checkpoint: launches = 20 x network
                  forwards, buffer fill = valid plies, 24 finite losses,
                  parameters moved, the checkpoint reloads exactly;
-8. profile       one ply's search at B=1024 under torch.profiler: wall
+9. bench         the port's ``bench.py --mode all --repeats 1`` in process,
+                 its JSON line printed (random self-play through
+                 ``random_step``, one launch a ply; self-play through
+                 ``int8_dx3``; one training iteration), then ``--mode mcts
+                 --net-variant int8``: ``trunk_int8`` launched 20 times a
+                 network forward;
+10. profile      one ply's search at B=1024 under torch.profiler: wall
                  time, device-busy time and idle share, time by kernel;
-9. timing        both trunk kernels, their plain versions and, for
-                 ``matmul9``, the same folded tower as 20 cuDNN convolutions,
-                 at B=1024 (CUDA events); the bounds, launches per forward.
+11. timing       the three trunk kernels and their plain versions at B=1024
+                 and, for ``matmul9``, the same folded tower as 20 cuDNN
+                 convolutions; ``random_step`` and its plain version for one
+                 ply of 4,194,304 games (CUDA events; their outputs must be
+                 bit-equal); the bounds, launches per forward.
 
 Then one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -74,7 +101,13 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from othello_reinforcement_learning_test_tpu_torch import bench
 from othello_reinforcement_learning_test_tpu_torch.kernels import build
+from othello_reinforcement_learning_test_tpu_torch.kernels import random_step as rs
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8 import (
+    trunk_int8,
+    trunk_int8_plain,
+)
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dx3 import (
     block_size,
     trunk_int8_dx3,
@@ -94,6 +127,7 @@ from othello_reinforcement_learning_test_tpu_torch.models.convert import (
 )
 from othello_reinforcement_learning_test_tpu_torch.models.fused_resnet import FusedInference
 from othello_reinforcement_learning_test_tpu_torch.models.resnet import OthelloResNet
+from othello_reinforcement_learning_test_tpu_torch.ops import fused_step
 from othello_reinforcement_learning_test_tpu_torch.ops.bitboard import get_engine
 from othello_reinforcement_learning_test_tpu_torch.search import mcts
 from othello_reinforcement_learning_test_tpu_torch.train import trainer as trainer_lib
@@ -106,11 +140,27 @@ SEED = 0
 INT8_OPS_PER_S = 1979e12
 BF16_OPS_PER_S = 989e12
 BYTES_PER_S = 3.35e12
+# INT32 rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper white paper)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# 32-bit integer operations a game and ply that random_step.cu cannot do
+# without: three floods (both sides' legal squares, the move's flips), each
+# 8 directions x 7 shift-and-merge steps x 4 (a 64-bit shift is two 32-bit
+# instructions, the and-or merge one 3-input logic instruction per half)
+RANDOM_STEP_OPS = 3 * 8 * 7 * 4
+# bytes a game and ply: two 64-bit board words read and written, two u32
+# random words read, one int32 live written
+RANDOM_STEP_BYTES = 2 * 8 + 2 * 8 + 2 * 4 + 4
+RANDOM_GAMES = 4194304  # bench.py's random-mode batch with the kernel
 TRUNK_SOURCE = "othello_reinforcement_learning_test_tpu_torch/csrc/trunk_int8_dx3.cu"
 TRUNK_REPLACES = "othello_reinforcement_learning_test_tpu/models/pallas_resnet.py:318"
-KERNEL_SOURCES = ("trunk_int8_dx3", "trunk_matmul9")
+KERNEL_SOURCES = ("trunk_int8_dx3", "trunk_matmul9", "trunk_int8", "random_step")
 M9_SOURCE = "othello_reinforcement_learning_test_tpu_torch/csrc/trunk_matmul9.cu"
 M9_REPLACES = "othello_reinforcement_learning_test_tpu/models/pallas_resnet.py:61"
+INT8_SOURCE = "othello_reinforcement_learning_test_tpu_torch/csrc/trunk_int8.cu"
+INT8_REPLACES = "othello_reinforcement_learning_test_tpu/models/pallas_resnet.py:149"
+STEP_SOURCE = "othello_reinforcement_learning_test_tpu_torch/csrc/random_step.cu"
+STEP_REPLACES = "othello_reinforcement_learning_test_tpu/ops/pallas_step.py:162"
+SEARCH_GAMES, SEARCH_SIMS = 128, 8
 # configs/run_flagship_r5.yaml, with self-play through matmul9 and a
 # checkpoint after the one iteration this script runs
 FLAGSHIP = {
@@ -417,6 +467,193 @@ def train_iteration(dev) -> int:
     return launches
 
 
+def check_trunk_int8(model, feats) -> tuple:
+    """The trunk_int8 kernel against its plain version, both stage_bf16
+    settings, at B=1024 and B=24, bit for bit; returns (largest difference,
+    FusedInference(int8))."""
+    fused8 = FusedInference(model, variant="int8")
+    w, ws, b = fused8.trunk_w, fused8.trunk_scale, fused8.trunk_bias
+    err = 0.0
+    for stage in (False, True):
+        for batch in (GAMES, 24):
+            h = fused8.stem(feats[:batch])
+            out_k = trunk_int8(h, w, ws, b, stage_bf16=stage)
+            out_p = trunk_int8_plain(h, w, ws, b, stage_bf16=stage)
+            torch.cuda.synchronize()
+            diff = (out_k.float() - out_p.float()).abs()
+            n_diff = int((diff != 0).sum())
+            err = max(err, float(diff.max()))
+            check(bool(torch.isfinite(out_k.float()).all()), "finite trunk_int8 output")
+            phase("kernel_check", kernel="trunk_int8", stage_bf16=stage, batch=batch,
+                  block_games=block_size(batch, 16), differing=n_diff, of=out_k.numel(),
+                  max_abs_diff=float(diff.max()))
+            check(n_diff == 0, f"trunk_int8 (stage_bf16={stage}) == plain version at B={batch}")
+    lp_k, v_k = fused8(feats)
+    lp_p, v_p = fused8.heads(trunk_int8_plain(fused8.stem(feats), w, ws, b))
+    check(torch.equal(lp_k, lp_p) and torch.equal(v_k, v_p),
+          "FusedInference(int8) kernel == plain trunk")
+    return err, fused8
+
+
+def u32_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| of two uint32 tensors, as int64."""
+    return ((a.view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
+            - (b.view(torch.int32).to(torch.int64) & 0xFFFFFFFF)).abs()
+
+
+def check_random_step(dev) -> float:
+    """random_step against random_step_plain on the card with the same
+    words, every ply to the end of every game: 4,096 games for each size and
+    rule set, then the bench's 4,194,304 at 8x8; then play_random_games
+    through the kernel against the plain loop on the CPU (see the module
+    docstring). Returns the largest difference."""
+    err = 0.0
+    cases = [(size, rules, 4096) for size in (8, 6, 4) for rules in ("reference", "standard")]
+    for size, rules, games in cases + [(8, "reference", RANDOM_GAMES)]:
+        eng = get_engine(size, rules)
+        s = eng.initial_state((games,), device=dev)
+        packed = fused_step.pack_boards(s.me, s.opp)
+        del s
+        gen = torch.Generator(device=dev).manual_seed(size + games)
+        plies, differing, live = 0, 0, True
+        while live and plies <= 2 * size * size + 4:
+            words = rs.draw_words(packed.shape[1:], gen)
+            new_k, live_k = rs.random_step(packed, words, size, rules)
+            new_p, live_p = rs.random_step_plain(packed, words, size, rules)
+            d = u32_diff(new_k, new_p)
+            differing += int((d != 0).sum()) + int((live_k != live_p).sum())
+            err = max(err, float(d.max()), float((live_k - live_p).abs().max()))
+            packed, live, plies = new_k, bool(live_k.any()), plies + 1
+        phase("kernel_check", kernel="random_step", size=size, rules=rules, games=games,
+              plies=plies, differing=differing, all_ended=not live)
+        check(differing == 0 and not live,
+              f"random_step == plain version, every ply, size {size} {rules}, {games} games")
+        del packed, words, new_k, live_k, new_p, live_p, d
+    s = get_engine(8).initial_state((16384,), device=dev)
+    packed = fused_step.pack_boards(s.me, s.opp)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    drawn = []
+
+    def draw(_):
+        drawn.append(rs.draw_words(packed.shape[1:], gen))
+        return drawn[-1]
+
+    final_k, steps_k, plies_k = fused_step.play_random_games(packed, gen, words=draw)
+    final_p, steps_p, plies_p = fused_step.play_random_games(
+        packed.cpu(), None, words=lambda ply: drawn[ply].cpu())
+    d = u32_diff(final_k.cpu(), final_p)
+    err = max(err, float(d.max()))
+    phase("kernel_check", what="play_random_games kernel vs the plain loop on the CPU",
+          games=16384, steps=[steps_k, steps_p], plies=[plies_k, plies_p],
+          boards_differing=int((d != 0).sum()))
+    check(int((d != 0).sum()) == 0 and (steps_k, plies_k) == (steps_p, plies_p),
+          "play_random_games through the kernel == the plain loop on the CPU")
+    return err
+
+
+def stub_weights(size: int, seed: int = 0) -> dict:
+    """The deterministic stub network's weights: multiples of 1/16 and 1/64,
+    so its logits and value are exact in float32 (the port half of
+    tests/torch_stub_net.py, which imports JAX)."""
+    rng = np.random.default_rng(seed)
+    n_in, n_act = size * size * 3, size * size + 1
+    return {"W": (rng.integers(-16, 17, (n_in, n_act)) / 16).astype(np.float32),
+            "b": (rng.integers(-8, 9, n_act) / 16).astype(np.float32),
+            "vw": (rng.integers(-8, 9, n_in) / 64).astype(np.float32),
+            "vb": np.float32(0.125)}
+
+
+def stub_net(weights: dict, device):
+    """The stub on ``device``; its log-softmax is taken in float64 and
+    rounded to float32, which the card and the CPU give bit for bit."""
+    W, b, vw = (torch.from_numpy(weights[k]).to(device) for k in ("W", "b", "vw"))
+    vb = float(weights["vb"])
+
+    def net(x):
+        f = x.reshape(x.shape[0], -1)
+        d = f @ vw + vb
+        log_p = torch.log_softmax((f @ W + b).to(torch.float64), dim=-1).to(torch.float32)
+        return log_p, (d / (1 + d.abs()))[:, None]
+
+    return net
+
+
+def search_check(engine, feats: torch.Tensor, dev) -> None:
+    """play_games on the card and on the CPU with the stub network: every
+    trajectory field bit-identical (see the module docstring)."""
+    weights = stub_weights(engine.size)
+    out_c = stub_net(weights, dev)(feats)
+    out_h = stub_net(weights, "cpu")(feats.cpu())
+    check(all(torch.equal(a.cpu(), h) for a, h in zip(out_c, out_h)),
+          "the stub's outputs on the card == CPU")
+    # why float64: the same logits' float32 log-softmax, card vs CPU
+    logits = feats.reshape(feats.shape[0], -1) @ torch.from_numpy(weights["W"]).to(dev)
+    f32_diff = float((torch.log_softmax(logits, -1).cpu() - torch.log_softmax(logits.cpu(), -1))
+                     .abs().max())
+    trajs, seconds = [], []
+    for d in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        trajs.append(play_games(engine, stub_net(weights, d), SEARCH_GAMES, SEARCH_SIMS,
+                                dirichlet_epsilon=0.0, temperature_threshold=0, seed=SEED,
+                                device=d))
+        seconds.append(round(time.perf_counter() - t0, 3))
+    card, host = trajs
+    differing = [f for f in card._fields if not torch.equal(getattr(card, f).cpu(), getattr(host, f))]
+    plies = [t for t in range(card.mask.shape[1])
+             if not all(torch.equal(getattr(card, f)[:, t].cpu(), getattr(host, f)[:, t])
+                        for f in ("me", "opp", "pi", "value", "mask"))]
+    phase("search_check", games=SEARCH_GAMES, simulations=SEARCH_SIMS,
+          log_softmax_f32_max_diff=f32_diff,
+          plies=int(host.mask.any(dim=0).sum()), fields_differing=differing,
+          first_diverging_plies=plies[:4], seconds_card_cpu=seconds)
+    check(not differing, f"self-play on the card == CPU (differing: {differing})")
+
+
+def bench_phase() -> tuple:
+    """The port's bench in process: ``--mode all --repeats 1`` (random_step
+    launched once a ply), then ``--mode mcts --net-variant int8``
+    (trunk_int8 launched 20 times a forward). Returns the launches of
+    random_step and trunk_int8 on these runs."""
+    plies, forwards = [], 0
+    play_random, trunk = bench.play_random_games, FusedInference.trunk
+
+    def counted_play(*args, **kwargs):
+        out = play_random(*args, **kwargs)
+        plies.append(out[2])
+        return out
+
+    def counted_trunk(self, h):
+        nonlocal forwards
+        forwards += 1
+        return trunk(self, h)
+
+    for kernel in (rs.random_step, trunk_int8, trunk_int8_dx3, trunk_matmul9):
+        kernel.launches = 0
+    bench.play_random_games = counted_play
+    try:
+        suite = bench.run(["--mode", "all", "--repeats", "1"])
+    finally:
+        bench.play_random_games = play_random
+    step_launches = rs.random_step.launches
+    phase("bench", argv="--mode all --repeats 1", line=suite)
+    check(step_launches > 0 and step_launches == sum(plies),
+          f"random_step launches {step_launches} == plies {sum(plies)}")
+    check(trunk_int8_dx3.launches > 0, "the bench's mcts mode ran int8_dx3")
+    check(suite["modes"]["mcts"]["net_variant"] == "int8_dx3", "mcts picks int8_dx3 on the card")
+    trunk_int8.launches = 0
+    FusedInference.trunk = counted_trunk
+    try:
+        line = bench.run(["--mode", "mcts", "--net-variant", "int8", "--repeats", "1"])
+    finally:
+        FusedInference.trunk = trunk
+    int8_launches = trunk_int8.launches
+    phase("bench", argv="--mode mcts --net-variant int8 --repeats 1", line=line,
+          forwards=forwards, trunk_int8_launches=int8_launches)
+    check(int8_launches > 0 and int8_launches == 2 * NUM_BLOCKS * forwards,
+          f"trunk_int8 launches {int8_launches} == 20 x forwards {forwards}")
+    return step_launches, int8_launches
+
+
 def cudnn_tower(h: torch.Tensor, w: list, b: torch.Tensor) -> torch.Tensor:
     """The folded matmul9 tower as 20 bf16 cuDNN convolutions with ReLU and
     the residual add: the library yardstick. h: (B, S, S, C), whose NCHW
@@ -446,7 +683,7 @@ def main() -> int:
           torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:  # one nvcc per source, together
         builds = dict(zip(KERNEL_SOURCES, pool.map(build.build, KERNEL_SOURCES)))
     for kname, built in builds.items():
         ptxas = [ln.strip() for ln in built.log.splitlines()
@@ -501,6 +738,8 @@ def main() -> int:
     fused_m9 = FusedInference(model_t.to(dev), variant="matmul9")
     m9_max_abs_err = max(m9_max_abs_err, check_matmul9(fused_m9, feats, "flax_init",
                                                        check_forward=True))
+    int8_max_abs_err, fused8 = check_trunk_int8(model, feats)
+    step_max_abs_err = check_random_step(dev)
 
     # engine: the same random plies on the card and on the CPU
     n_games, n_plies = 512, 130
@@ -520,6 +759,7 @@ def main() -> int:
             check(torch.equal(a.cpu(), h_), "boards on CUDA == CPU")
     check(bool(engine.is_terminal(boards_h).all()), "random games end")
     phase("engine_check", games=n_games, plies=n_plies, identical=True)
+    search_check(engine, feats, dev)
 
     # main path: self-play through the kernel
     forwards = 0
@@ -565,6 +805,7 @@ def main() -> int:
     # the training path: one f32 step card vs CPU, then one flagship iteration
     train_step_check(engine, feats.cpu(), rng)
     m9_launches = train_iteration(dev)
+    step_launches, int8_launches = bench_phase()
 
     # timing at the main paths' shape (B=1024)
     h = fused.stem(feats)
@@ -580,6 +821,30 @@ def main() -> int:
     m9_forward_ms = time_ms(lambda: fused_m9(feats), reps=20)
     cudnn_ms = time_ms(lambda: cudnn_tower(h9, w_oihw, b_bf16), reps=20)
     m9_bound_ms, m9_bound_by = trunk_bound_ms(GAMES, layers, NUM_FILTERS, bf16=True)
+    h8, w8, ws8, b8 = fused8.stem(feats), fused8.trunk_w, fused8.trunk_scale, fused8.trunk_bias
+    int8_ms = time_ms(lambda: trunk_int8(h8, w8, ws8, b8), reps=20)
+    int8_bf16_ms = time_ms(lambda: trunk_int8(h8, w8, ws8, b8, stage_bf16=True), reps=20)
+    int8_plain_ms = time_ms(lambda: trunk_int8_plain(h8, w8, ws8, b8), reps=3, warmup=1)
+    int8_bf16_plain_ms = time_ms(lambda: trunk_int8_plain(h8, w8, ws8, b8, stage_bf16=True),
+                                 reps=3, warmup=1)
+    int8_forward_ms = time_ms(lambda: fused8(feats), reps=20)
+    start = engine.initial_state((RANDOM_GAMES,), device=dev)
+    big = fused_step.pack_boards(start.me, start.opp)
+    big_words = rs.draw_words(big.shape[1:], torch.Generator(device=dev).manual_seed(SEED))
+    step_ms = time_ms(lambda: rs.random_step(big, big_words), reps=20)
+    step_plain_ms = time_ms(lambda: rs.random_step_plain(big, big_words), reps=3, warmup=1)
+    (new_k, live_k), (new_p, live_p) = (rs.random_step(big, big_words),
+                                        rs.random_step_plain(big, big_words))
+    d = u32_diff(new_k, new_p)
+    step_max_abs_err = max(step_max_abs_err, float(d.max()),
+                           float((live_k - live_p).abs().max()))
+    check(int((d != 0).sum()) == 0 and torch.equal(live_k, live_p),
+          "timed random_step == plain version")
+    step_t_bytes = RANDOM_GAMES * RANDOM_STEP_BYTES / BYTES_PER_S * 1e3
+    step_t_ops = RANDOM_GAMES * RANDOM_STEP_OPS / INT32_OPS_PER_S * 1e3
+    step_bound_ms, step_bound_by = ((step_t_ops, "operations") if step_t_ops >= step_t_bytes
+                                    else (step_t_bytes, "bytes"))
+    del big, big_words, new_k, live_k, new_p, live_p, d
     boards = random_positions(engine, GAMES, 20, rng, dev)
     phase("profile", what=f"one search at B={GAMES}, {SIMS} simulations, 20 plies in",
           **profile_search(engine, fused, boards))
@@ -592,6 +857,14 @@ def main() -> int:
           fused_forward_ms=m9_forward_ms, launches_per_forward=layers,
           library_ms=cudnn_ms, library="cuDNN tower: 20 bf16 F.conv2d calls (channels last) "
           "with ReLU and the residual add, not one call")
+    phase("timing", kernel="trunk_int8", batch=GAMES, kernel_ms=int8_ms,
+          kernel_bf16_ms=int8_bf16_ms, plain_ms=int8_plain_ms,
+          plain_bf16_ms=int8_bf16_plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+          fused_forward_ms=int8_forward_ms, launches_per_forward=layers, library_ms=None)
+    phase("timing", kernel="random_step", games=RANDOM_GAMES, kernel_ms=step_ms,
+          plain_ms=step_plain_ms, bound_ms=step_bound_ms, bound_by=step_bound_by,
+          bytes_ms=step_t_bytes, operations_ms=step_t_ops, ops_per_game=RANDOM_STEP_OPS,
+          bytes_per_game=RANDOM_STEP_BYTES, library_ms=None)
 
     kernels = [{
         "name": "trunk_int8_dx3", "route": "cuda", "source": TRUNK_SOURCE,
@@ -603,6 +876,16 @@ def main() -> int:
         "replaces": M9_REPLACES, "launches": m9_launches,
         "max_abs_err": m9_max_abs_err, "ms": m9_ms, "plain_ms": m9_plain_ms,
         "bound_ms": m9_bound_ms, "bound_by": m9_bound_by, "library_ms": cudnn_ms,
+    }, {
+        "name": "trunk_int8", "route": "cuda", "source": INT8_SOURCE,
+        "replaces": INT8_REPLACES, "launches": int8_launches,
+        "max_abs_err": int8_max_abs_err, "ms": int8_ms, "plain_ms": int8_plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }, {
+        "name": "random_step", "route": "cuda", "source": STEP_SOURCE,
+        "replaces": STEP_REPLACES, "launches": step_launches,
+        "max_abs_err": step_max_abs_err, "ms": step_ms, "plain_ms": step_plain_ms,
+        "bound_ms": step_bound_ms, "bound_by": step_bound_by, "library_ms": None,
     }]
     phase("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,82 @@
+// Pieces shared by the int8 trunk kernels (trunk_int8_dx3.cu, trunk_int8.cu):
+// the activation scale and quantisation, the s8 mma.sync, the warp max, and
+// the pre-pass that converts the bf16 trunk input to f32 and reduces the
+// first layer's per-block amax. Included inside each kernel's anonymous
+// namespace, after <cuda_bf16.h>, <cuda_runtime.h> and <stdint.h>; the
+// board and channel sizes are those of the 10x128 network.
+
+#pragma once
+
+constexpr int C = 128;        // channels
+constexpr int S = 8;          // board side
+constexpr int P = S * S;      // positions per game
+constexpr int THREADS = 256;  // 8 warps
+
+__device__ __forceinline__ float act_scale(float amax) {
+  return __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f);
+}
+
+__device__ __forceinline__ uint32_t quant4(float4 v, float s) {
+  const float f[4] = {v.x, v.y, v.z, v.w};
+  uint32_t out = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float r = rintf(__fdiv_rn(f[i], s));
+    r = fminf(fmaxf(r, -127.0f), 127.0f);
+    out |= (static_cast<uint32_t>(static_cast<int>(r)) & 0xFFu) << (8 * i);
+  }
+  return out;
+}
+
+__device__ __forceinline__ uint32_t ld32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float warp_max(float m) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  return m;
+}
+
+// bf16 (B, 64, C) -> f32 copy, and amax[0][game / bg] = max |x| per block.
+__global__ void __launch_bounds__(THREADS)
+prepass_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ xf,
+               float* __restrict__ amax0, int bg) {
+  const int game = blockIdx.x;
+  const int tid = threadIdx.x;
+  const uint4* src = reinterpret_cast<const uint4*>(x + static_cast<size_t>(game) * P * C);
+  float4* dst = reinterpret_cast<float4*>(xf + static_cast<size_t>(game) * P * C);
+  float m = 0.0f;
+  for (int i = tid; i < P * C / 8; i += THREADS) {
+    const uint4 u = src[i];
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+    float f[8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      f[2 * j] = __uint_as_float(w[j] << 16);
+      f[2 * j + 1] = __uint_as_float(w[j] & 0xFFFF0000u);
+    }
+    dst[2 * i] = make_float4(f[0], f[1], f[2], f[3]);
+    dst[2 * i + 1] = make_float4(f[4], f[5], f[6], f[7]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(f[j]));
+  }
+  __shared__ float red[THREADS / 32];
+  m = warp_max(m);
+  if ((tid & 31) == 0) red[tid >> 5] = m;
+  __syncthreads();
+  if (tid == 0) {
+    float r = red[0];
+    for (int i = 1; i < THREADS / 32; ++i) r = fmaxf(r, red[i]);
+    atomicMax(reinterpret_cast<int*>(amax0) + game / bg, __float_as_int(r));
+  }
+}

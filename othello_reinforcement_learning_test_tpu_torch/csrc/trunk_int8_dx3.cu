@@ -13,6 +13,9 @@
 //   z     = float(acc) * (s_act * w_scale[c]) + bias[c]   (f32, no FMA)
 // with y = relu(conv0(x)), x = relu(x + conv1(y)) in f32 and a bf16 output.
 //
+// Shapes: 8x8 boards and C = 128 channels only (the wrapper raises on any
+// other); the plain version takes any board side and channel count.
+//
 // Bound on an H100 SXM: 20 convs x B*64 rows x 128*128*9 MACs x 2 is
 // 3.9e11 int8 operations per forward at B = 1024, 0.2 ms at the dense int8
 // tensor-core rate of 1,979 TOP/s; the bytes (bf16 in and out, 2.9 MB of
@@ -39,16 +42,14 @@
 
 namespace {
 
-constexpr int C = 128;                  // channels
-constexpr int S = 8;                    // board side
-constexpr int P = S * S;                // positions per game
+#include "int8_trunk_common.cuh"
+
 constexpr int GAMES = 2;                // games per CTA
 constexpr int PADW = S + 2;             // zero-padded board side
 constexpr int PADP = PADW * PADW;       // padded positions per game
 constexpr int RSTRIDE = C + 16;         // smem bytes per row: 36 words, so 8
                                         // rows x 4 words hit 32 distinct banks
 constexpr int TAPS = 9;
-constexpr int THREADS = 256;            // 8 warps: 4 along rows x 2 along channels
 constexpr int W_SMEM = TAPS * C * RSTRIDE;
 constexpr int A_SMEM = GAMES * PADP * RSTRIDE;
 constexpr int SMEM_BYTES = W_SMEM + A_SMEM;
@@ -56,75 +57,6 @@ constexpr int W_ITEMS = 3 * (C / 4) * 3 * (C / 4);  // 4x4 byte blocks of a laye
 
 static_assert(W_SMEM % 16 == 0 && A_SMEM % 16 == 0, "16-byte aligned tiles");
 static_assert(W_ITEMS % THREADS == 0, "whole staging iterations");
-
-__device__ __forceinline__ float act_scale(float amax) {
-  return __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f);
-}
-
-__device__ __forceinline__ uint32_t quant4(float4 v, float s) {
-  const float f[4] = {v.x, v.y, v.z, v.w};
-  uint32_t out = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float r = rintf(__fdiv_rn(f[i], s));
-    r = fminf(fmaxf(r, -127.0f), 127.0f);
-    out |= (static_cast<uint32_t>(static_cast<int>(r)) & 0xFFu) << (8 * i);
-  }
-  return out;
-}
-
-__device__ __forceinline__ uint32_t ld32(const unsigned char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float warp_max(float m) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  return m;
-}
-
-// bf16 (B, 64, C) -> f32 copy, and amax[0][game / bg] = max |x| per block.
-__global__ void __launch_bounds__(THREADS)
-prepass_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ xf,
-               float* __restrict__ amax0, int bg) {
-  const int game = blockIdx.x;
-  const int tid = threadIdx.x;
-  const uint4* src = reinterpret_cast<const uint4*>(x + static_cast<size_t>(game) * P * C);
-  float4* dst = reinterpret_cast<float4*>(xf + static_cast<size_t>(game) * P * C);
-  float m = 0.0f;
-  for (int i = tid; i < P * C / 8; i += THREADS) {
-    const uint4 u = src[i];
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-    float f[8];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      f[2 * j] = __uint_as_float(w[j] << 16);
-      f[2 * j + 1] = __uint_as_float(w[j] & 0xFFFF0000u);
-    }
-    dst[2 * i] = make_float4(f[0], f[1], f[2], f[3]);
-    dst[2 * i + 1] = make_float4(f[4], f[5], f[6], f[7]);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(f[j]));
-  }
-  __shared__ float red[THREADS / 32];
-  m = warp_max(m);
-  if ((tid & 31) == 0) red[tid >> 5] = m;
-  __syncthreads();
-  if (tid == 0) {
-    float r = red[0];
-    for (int i = 1; i < THREADS / 32; ++i) r = fmaxf(r, red[i]);
-    atomicMax(reinterpret_cast<int*>(amax0) + game / bg, __float_as_int(r));
-  }
-}
 
 // One 3x3 conv of the trunk over GAMES games per CTA.
 //   in:    f32 (B, 64, C) layer input, quantized here with amax[layer]

@@ -14,6 +14,9 @@
 // Every bf16 x bf16 product is exact in f32; only the order of the f32 sums
 // differs from the plain version's.
 //
+// Shapes: 8x8 boards and C = 128 channels only (the wrapper raises on any
+// other); the plain version takes any board side and channel count.
+//
 // Bound on an H100 SXM: 2 * 9 * C^2 * (B * 64) * L = 3.87e11 bf16 operations
 // per forward at B = 1024, L = 20, C = 128, 0.39 ms at the dense bf16
 // tensor-core rate of 989 TFLOP/s; the bytes (bf16 activations in and out,

@@ -3,8 +3,8 @@
 Each source ``csrc/<name>.cu`` exposes a plain C interface and is compiled
 for Hopper (``sm_90a``) into a shared library under the package's
 git-ignored ``_build/`` directory on first use. The library's file name
-carries a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is reused.
+carries a hash of the source, the headers ``csrc/*.cuh`` and the flags, so
+an edited source or header is rebuilt and an unchanged one is reused.
 
 ``-fmad=false`` keeps every float multiply and add separately rounded, as
 the plain PyTorch versions compute them, so kernel and plain version can
@@ -59,10 +59,11 @@ def find_nvcc() -> str:
 
 @functools.cache
 def build(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` unless a library for this exact source and
-    these flags already exists."""
+    """Compile ``csrc/<name>.cu`` unless a library for this exact source,
+    these headers and these flags already exists."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():
         return Built(out, 0.0, "")

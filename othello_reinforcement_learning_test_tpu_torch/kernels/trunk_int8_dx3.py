@@ -56,13 +56,16 @@ def div127(x: torch.Tensor) -> torch.Tensor:
 
 def int8_conv3x3(h: torch.Tensor, taps: torch.Tensor,
                  offsets: Sequence[Tuple[int, int]], w_scale: torch.Tensor,
-                 bias: torch.Tensor, bg: int) -> torch.Tensor:
+                 bias: torch.Tensor, bg: int, stage_bf16: bool = False) -> torch.Tensor:
     """One folded int8 conv, plain PyTorch. h: (B, S, S, C) f32; taps:
     (9C, C) int8 with rows in ``offsets`` order; one activation scale per
     block of ``bg`` games. Returns f32.
 
     The integer products are summed in float64, where every partial sum of
-    int8 x int8 products over 9 * C terms is an exact integer.
+    int8 x int8 products over 9 * C terms is an exact integer. With
+    ``stage_bf16`` (the ``int8_bf16`` variant) each tap's integer product is
+    instead rounded to bf16 through f32, as XLA converts int32 to bf16, and
+    the taps are summed in f32 from zero in ``offsets`` order.
     """
     B, S, _, C = h.shape
     s_act = div127(h.abs().reshape(B // bg, -1).amax(dim=1).clamp_min(1e-8))
@@ -74,6 +77,8 @@ def int8_conv3x3(h: torch.Tensor, taps: torch.Tensor,
     for k, (dy, dx) in enumerate(offsets):
         part = qp[:, 1 + dy:1 + dy + S, 1 + dx:1 + dx + S, :].reshape(-1, C) \
             @ wt[k * C:(k + 1) * C]
+        if stage_bf16:
+            part = part.to(torch.float32).to(torch.bfloat16).to(torch.float32)
         acc = part if acc is None else acc + part
     scale = s_rows[:, None] * w_scale[None, :]  # (B, C): s_act * w_scale first
     return acc.to(torch.float32).reshape(B, S, S, C) * scale[:, None, None, :] \
@@ -82,13 +87,13 @@ def int8_conv3x3(h: torch.Tensor, taps: torch.Tensor,
 
 def int8_trunk(h: torch.Tensor, taps: torch.Tensor,
                offsets: Sequence[Tuple[int, int]], w_scale: torch.Tensor,
-               bias: torch.Tensor, bg: int) -> torch.Tensor:
+               bias: torch.Tensor, bg: int, stage_bf16: bool = False) -> torch.Tensor:
     """The residual tower of :func:`int8_conv3x3` layers, f32 in and out."""
     for i in range(taps.shape[0] // 2):
         y = torch.relu(int8_conv3x3(h, taps[2 * i], offsets, w_scale[2 * i],
-                                    bias[2 * i], bg))
+                                    bias[2 * i], bg, stage_bf16))
         z = int8_conv3x3(y, taps[2 * i + 1], offsets, w_scale[2 * i + 1],
-                         bias[2 * i + 1], bg)
+                         bias[2 * i + 1], bg, stage_bf16)
         h = torch.relu(h + z)
     return h
 
@@ -102,14 +107,16 @@ def trunk_int8_dx3_plain(x: torch.Tensor, w: torch.Tensor,
                       w_scale, bias, bg).to(torch.bfloat16)
 
 
-def _check(x, w, w_scale, bias) -> int:
+def check_int8_args(x, w, w_scale, bias, w_tail) -> int:
+    """Check an int8 trunk's arguments; ``w_tail(C)`` is the weights' shape
+    after L. Returns L."""
     if x.dim() != 4 or x.shape[1] != x.shape[2] or x.dtype != torch.bfloat16:
         raise ValueError(f"x must be bf16 (B, S, S, C), got {x.dtype} {tuple(x.shape)}")
     C = x.shape[3]
-    if w.dim() != 4 or w.shape[1:] != (3, C, 3 * C) or w.dtype != torch.int8 \
+    if w.dim() != 1 + len(w_tail(C)) or w.shape[1:] != w_tail(C) or w.dtype != torch.int8 \
             or w.shape[0] % 2 or w.shape[0] == 0:
-        raise ValueError(f"w must be int8 (L, 3, {C}, {3 * C}) with even L > 0, "
-                         f"got {w.dtype} {tuple(w.shape)}")
+        raise ValueError(f"w must be int8 (L, {', '.join(map(str, w_tail(C)))}) with even "
+                         f"L > 0, got {w.dtype} {tuple(w.shape)}")
     L = w.shape[0]
     for name, t in (("w_scale", w_scale), ("bias", bias)):
         if t.shape != (L, C) or t.dtype != torch.float32:
@@ -134,9 +141,44 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"trunk_int8_dx3 {what} failed: CUDA error {rc}")
+def launch_int8_trunk(wrapper, prepass, conv, x: torch.Tensor, w: torch.Tensor,
+                      w_scale: torch.Tensor, bias: torch.Tensor, block_games: int,
+                      *flags: int) -> torch.Tensor:
+    """The launch sequence the int8 trunk kernels share: one pre-pass (bf16
+    input to f32, the first layer's per-block amax), then one ``conv``
+    launch per layer, each counted in ``wrapper.launches``; ``flags`` are
+    the kernel's own trailing arguments. 8x8 boards and 128 channels only."""
+    B, S, _, C = x.shape
+    if (S, C) != (8, 128):
+        raise ValueError(f"the CUDA kernel takes 8x8 boards and 128 channels, got S={S} C={C}")
+    L = w.shape[0]
+    bg = block_size(B, block_games)
+
+    def raise_on(rc: int, what: str) -> None:
+        if rc != 0:
+            raise RuntimeError(f"{wrapper.__name__} {what} failed: CUDA error {rc}")
+
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        xf = torch.empty((B, S, S, C), dtype=torch.float32, device=x.device)
+        yf = torch.empty_like(xf)
+        out = torch.empty_like(x)
+        amax = torch.empty((L, B // bg), dtype=torch.float32, device=x.device)
+        raise_on(prepass(x.data_ptr(), xf.data_ptr(), amax.data_ptr(), B, bg, L, stream),
+                 "pre-pass")
+        for layer in range(L):
+            conv1 = layer % 2 == 1
+            last = layer == L - 1
+            rc = conv(
+                (yf if conv1 else xf).data_ptr(),
+                xf.data_ptr() if conv1 else None,
+                None if last else (xf if conv1 else yf).data_ptr(),
+                out.data_ptr() if last else None,
+                w[layer].data_ptr(), w_scale[layer].data_ptr(), bias[layer].data_ptr(),
+                amax.data_ptr(), layer, L, B, bg, int(conv1), int(last), *flags, stream)
+            raise_on(rc, f"conv {layer}")
+            wrapper.launches += 1
+    return out
 
 
 def trunk_int8_dx3(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
@@ -149,40 +191,14 @@ def trunk_int8_dx3(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
     conv, each counted in ``trunk_int8_dx3.launches``) or raises; the plain
     version runs only for a tensor on the CPU.
     """
-    L = _check(x, w, w_scale, bias)
+    check_int8_args(x, w, w_scale, bias, lambda C: (3, C, 3 * C))
     if x.device.type == "cpu":
         return trunk_int8_dx3_plain(x, w, w_scale, bias, block_games)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    B, S, _, C = x.shape
-    if (S, C) != (8, 128):
-        raise ValueError(f"the CUDA kernel takes 8x8 boards and 128 channels, got S={S} C={C}")
-    bg = block_size(B, block_games)
     lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        xf = torch.empty((B, S, S, C), dtype=torch.float32, device=x.device)
-        yf = torch.empty_like(xf)
-        out = torch.empty_like(x)
-        amax = torch.empty((L, B // bg), dtype=torch.float32, device=x.device)
-        _raise_on(lib.trunk_dx3_prepass(x.data_ptr(), xf.data_ptr(), amax.data_ptr(),
-                                        B, bg, L, stream), "pre-pass")
-        layer_bytes = 9 * C * C
-        for layer in range(L):
-            conv1 = layer % 2 == 1
-            last = layer == L - 1
-            rc = lib.trunk_dx3_conv(
-                (yf if conv1 else xf).data_ptr(),
-                xf.data_ptr() if conv1 else None,
-                None if last else (xf if conv1 else yf).data_ptr(),
-                out.data_ptr() if last else None,
-                w.data_ptr() + layer * layer_bytes,
-                w_scale.data_ptr() + layer * C * 4,
-                bias.data_ptr() + layer * C * 4,
-                amax.data_ptr(), layer, L, B, bg, int(conv1), int(last), stream)
-            _raise_on(rc, f"conv {layer}")
-            trunk_int8_dx3.launches += 1
-    return out
+    return launch_int8_trunk(trunk_int8_dx3, lib.trunk_dx3_prepass, lib.trunk_dx3_conv,
+                             x, w, w_scale, bias, block_games)
 
 
 trunk_int8_dx3.launches = 0

@@ -5,12 +5,13 @@ pallas_resnet.py``: BatchNorm folding, the dx3 weight relayout, the
 block-size rule and ``FusedInference``. The stem and the two heads are
 plain bf16 PyTorch ops, as the JAX package leaves them to XLA; the residual
 tower goes through a hand-written kernel: ``kernels/trunk_int8_dx3.py``
-(variant ``int8_dx3``) or ``kernels/trunk_matmul9.py`` (variant
-``matmul9``).
+(variant ``int8_dx3``), ``kernels/trunk_matmul9.py`` (variant ``matmul9``)
+or ``kernels/trunk_int8.py`` (variants ``int8`` and ``int8_bf16``). Variant
+``int8_xla`` has no kernel in the JAX package either: it is the plain
+quantized trunk with one activation scale per batch, on both devices.
 
-Only those two variants are ported. ``ROADMAP.md`` lists the other eight
-variants of the JAX package's ``FusedInference.VARIANTS`` as not yet
-ported.
+``ROADMAP.md`` lists the other variants of the JAX package's
+``FusedInference.VARIANTS`` as not yet ported.
 """
 
 from __future__ import annotations
@@ -19,12 +20,13 @@ from typing import Tuple
 
 import torch
 
+from ..kernels import trunk_int8 as out_shift
 from ..kernels.trunk_int8_dx3 import DEFAULT_BLOCK_GAMES, trunk_int8_dx3
 from ..kernels.trunk_matmul9 import trunk_matmul9
 from .resnet import OthelloResNet
 
 BN_EPS = 1e-5
-PORTED_VARIANTS = ("int8_dx3", "matmul9")
+PORTED_VARIANTS = ("int8_dx3", "matmul9", "int8", "int8_bf16", "int8_xla")
 
 
 def _bn_affine(bn: torch.nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -61,12 +63,18 @@ def dx3_weights(w_int8: torch.Tensor) -> torch.Tensor:
 
 class FusedInference:
     """Eval-mode ``(B, S, S, 3) -> (log_probs (B, A), value (B, 1))`` with a
-    trunk kernel. The weights are folded (and for ``int8_dx3`` quantized and
-    relaid out) once, here, from ``model``'s current parameters, on
-    ``model``'s device: build a new instance after the parameters change.
+    trunk kernel. The weights are folded (and for the int8 variants
+    quantized, for ``int8_dx3`` also relaid out) once, here, from
+    ``model``'s current parameters, on ``model``'s device: build a new
+    instance after the parameters change.
 
     - ``int8_dx3``: the activation scale is taken per block of 64 games
       (halved until it divides the batch), the JAX package's default;
+    - ``int8`` and ``int8_bf16``: the same quantized trunk, per block of 16
+      games, as the JAX package's defaults for these variants, in the
+      tap-major (L, C, 9C) layout; ``int8_bf16`` rounds each tap's product
+      to bf16;
+    - ``int8_xla``: the same quantized trunk with one scale per batch;
     - ``matmul9``: bf16 folded weights (L, 3, 3, C, C) and f32 biases
       (L, C); the JAX kernel's block of 32 games has no numeric effect, as
       there is no per-block scale.
@@ -87,11 +95,12 @@ class FusedInference:
             stem = model.conv_block
             self.stem_w = stem.conv.weight.to(bf16)
             self.stem_g, self.stem_b = _bn_affine(stem.bn)
-            if variant == "int8_dx3":
-                qt = quantize_trunk(model)
-                self.trunk_w = dx3_weights(qt.w_int8)
-                self.trunk_scale = qt.w_scale.contiguous()
-                self.trunk_bias = qt.bias.contiguous()
+            if variant.startswith("int8"):
+                self.qt = quantize_trunk(model)
+                self.trunk_w = (dx3_weights(self.qt.w_int8) if variant == "int8_dx3"
+                                else self.qt.w_int8)
+                self.trunk_scale = self.qt.w_scale.contiguous()
+                self.trunk_bias = self.qt.bias.contiguous()
             else:
                 w, b = fold_block_params(model)
                 self.trunk_w, self.trunk_bias = w.contiguous(), b.contiguous()
@@ -118,8 +127,15 @@ class FusedInference:
     def trunk(self, h: torch.Tensor) -> torch.Tensor:
         if self.variant == "matmul9":
             return trunk_matmul9(h, self.trunk_w, self.trunk_bias)
-        return trunk_int8_dx3(h, self.trunk_w, self.trunk_scale,
-                              self.trunk_bias, DEFAULT_BLOCK_GAMES)
+        if self.variant == "int8_xla":
+            from .quantized import plain_int8_trunk
+            return plain_int8_trunk(h.to(torch.float32), self.qt).to(torch.bfloat16)
+        if self.variant == "int8_dx3":
+            return trunk_int8_dx3(h, self.trunk_w, self.trunk_scale,
+                                  self.trunk_bias, DEFAULT_BLOCK_GAMES)
+        return out_shift.trunk_int8(h, self.trunk_w, self.trunk_scale, self.trunk_bias,
+                                    out_shift.DEFAULT_BLOCK_GAMES,
+                                    stage_bf16=self.variant == "int8_bf16")
 
     @torch.no_grad()
     def heads(self, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

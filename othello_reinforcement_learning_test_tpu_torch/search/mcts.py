@@ -360,7 +360,10 @@ def action_probs_from_counts(counts: torch.Tensor, legal: torch.Tensor,
     # temperatures cannot overflow float32
     cmax = counts.amax(dim=-1, keepdim=True).clamp_min(1e-9)
     powered = torch.pow(counts.clamp_min(0.0) / cmax, 1.0 / safe_t)
-    total = powered.sum(dim=-1, keepdim=True)
+    # summed in float64, where at temperature 1 (counts / cmax, the pi
+    # targets) every partial sum is exact: the result then does not depend
+    # on the order of the sum, so the card and the CPU give the same bits
+    total = powered.to(torch.float64).sum(dim=-1, keepdim=True).to(torch.float32)
     n_legal = legal.sum(dim=-1, keepdim=True).clamp_min(1)
     uniform = legal / n_legal
     powered = torch.where(total > 0, powered / total.clamp_min(1e-8), uniform)

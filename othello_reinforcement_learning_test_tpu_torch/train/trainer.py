@@ -5,7 +5,8 @@ iteration (``AlphaZeroTrainer._train_iteration``):
 
 1. plays ``self_play_episodes_per_iter`` games with the current network
    (``system.self_play_net_variant``: ``"xla"`` is the plain eval forward,
-   ``"int8_dx3"`` and ``"matmul9"`` run the hand-written trunk kernels);
+   ``"int8_dx3"``, ``"matmul9"``, ``"int8"`` and ``"int8_bf16"`` run the
+   hand-written trunk kernels, ``"int8_xla"`` the plain quantized trunk);
    the fused network is rebuilt from the current parameters before every
    self-play, since ``FusedInference`` folds its weights once;
 2. adds the trajectories to the ring buffer;

@@ -4,8 +4,10 @@ CUDA card. Imports no JAX, so it runs where only torch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
 Without a card every test skips. Tolerances:
-- ``int8_dx3``: bit-exact (the plain version repeats the kernel's
-  arithmetic);
+- ``int8_dx3`` and ``trunk_int8`` (both ``stage_bf16`` settings):
+  bit-exact (the plain versions repeat the kernels' arithmetic);
+- ``random_step``: boards and ``live`` bit-exact against
+  ``random_step_plain`` fed the same random words (integer work);
 - ``matmul9``: the whole trunk equal bit for bit to its 20 convs launched
   one by one (no atomics, a fixed summation order); each conv against the
   plain conv on the same input within
@@ -22,6 +24,11 @@ import numpy as np
 import pytest
 import torch
 
+from othello_reinforcement_learning_test_tpu_torch.kernels import random_step as rs
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8 import (
+    trunk_int8,
+    trunk_int8_plain,
+)
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dx3 import (
     trunk_int8_dx3,
     trunk_int8_dx3_plain,
@@ -40,6 +47,8 @@ from othello_reinforcement_learning_test_tpu_torch.models.convert import (
 )
 from othello_reinforcement_learning_test_tpu_torch.models.fused_resnet import FusedInference
 from othello_reinforcement_learning_test_tpu_torch.models.resnet import OthelloResNet
+from othello_reinforcement_learning_test_tpu_torch.ops import fused_step
+from othello_reinforcement_learning_test_tpu_torch.ops.bitboard import get_engine
 
 
 @pytest.fixture(scope="module")
@@ -143,3 +152,77 @@ def test_matmul9_wrapper_refuses_bad_input(fused_m9, bad):
     with pytest.raises(ValueError):
         trunk_matmul9(h, w, b)
     assert trunk_matmul9.launches == before
+
+
+@pytest.fixture(scope="module")
+def fused_int8():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    m = OthelloResNet(10, 128)
+    m.load_state_dict(from_jax_variables(init_numpy_variables(10, 128, seed=1)))
+    return FusedInference(m.cuda().eval(), variant="int8")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage_bf16", [False, True])
+@pytest.mark.parametrize("batch", [1024, 24, 3])
+def test_trunk_int8_matches_plain(fused_int8, batch, stage_bf16):
+    rng = np.random.default_rng(batch)
+    h = np.abs(rng.standard_normal((batch, 8, 8, 128))) * rng.random((batch, 1, 1, 1)) * 2
+    x = torch.from_numpy(h.astype(np.float32)).to(torch.bfloat16).cuda()
+    args = (fused_int8.trunk_w, fused_int8.trunk_scale, fused_int8.trunk_bias)
+    before = trunk_int8.launches
+    out = trunk_int8(x, *args, stage_bf16=stage_bf16)
+    assert trunk_int8.launches == before + 20
+    assert torch.equal(out, trunk_int8_plain(x, *args, stage_bf16=stage_bf16))
+
+
+@pytest.mark.cuda
+def test_trunk_int8_refuses_other_shapes(fused_int8):
+    x = torch.zeros((4, 6, 6, 128), dtype=torch.bfloat16, device="cuda")
+    args = (fused_int8.trunk_w, fused_int8.trunk_scale, fused_int8.trunk_bias)
+    before = trunk_int8.launches
+    with pytest.raises(ValueError, match="8x8"):
+        trunk_int8(x, *args)
+    assert trunk_int8.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,rules", [(8, "reference"), (8, "standard"), (6, "reference"),
+                                        (6, "standard"), (4, "reference"), (4, "standard")])
+def test_random_step_matches_plain(size, rules):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    s = get_engine(size, rules).initial_state((1024,), device="cuda")
+    packed = fused_step.pack_boards(s.me, s.opp)
+    gen = torch.Generator(device="cuda").manual_seed(size)
+    live = torch.ones(1)
+    while bool(live.any()):
+        words = rs.draw_words(packed.shape[1:], gen)
+        before = rs.random_step.launches
+        new, live = rs.random_step(packed, words, size, rules)
+        assert rs.random_step.launches == before + 1
+        new_p, live_p = rs.random_step_plain(packed, words, size, rules)
+        assert torch.equal(new.view(torch.int32), new_p.view(torch.int32))
+        assert torch.equal(live, live_p)
+        packed = new
+
+
+@pytest.mark.cuda
+def test_play_random_games_kernel_matches_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    s = get_engine(8).initial_state((2048,), device="cuda")
+    packed = fused_step.pack_boards(s.me, s.opp)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    drawn = []
+
+    def draw(_):
+        drawn.append(rs.draw_words(packed.shape[1:], gen))
+        return drawn[-1]
+
+    final, steps, plies = fused_step.play_random_games(packed, gen, words=draw)
+    final_c, steps_c, plies_c = fused_step.play_random_games(
+        packed.cpu(), None, words=lambda ply: drawn[ply].cpu())
+    assert torch.equal(final.cpu().view(torch.int32), final_c.view(torch.int32))
+    assert (steps, plies) == (steps_c, plies_c)
