@@ -7,11 +7,14 @@ Imports torch, numpy and the port package only (no JAX). Phases, one line
 each as they finish:
 
 1. device        card name and ``nvidia-smi`` name / power limit;
-2. build         the four kernels (``trunk_int8_dx3``, ``trunk_matmul9``,
-                 ``trunk_int8``, ``random_step``) built from ``csrc/`` with
-                 nvcc, in parallel; ptxas registers and shared memory;
+2. build         the eight kernels (``trunk_int8_dx3``, ``trunk_matmul9``,
+                 ``trunk_int8``, ``random_step``, ``trunk_wide``,
+                 ``trunk_int8_m9``, ``trunk_int8_patch``,
+                 ``trunk_int8_flat``) built from ``csrc/`` with nvcc, in
+                 parallel; ptxas registers and shared memory;
 3. kernel_check  the ``int8_dx3`` trunk kernel against its plain PyTorch
-                 version on the card, at B=1024 (bg 64) and B=24 (bg 8), on
+                 version on the card, at B=1024 (bg 64), B=24 (bg 8) and
+                 B=3 (bg 1), on
                  stem outputs of real positions; 10x128 weights from a
                  numpy seed. Tolerance: bit-exact (the plain version repeats
                  the kernel's arithmetic); also FusedInference with the
@@ -34,10 +37,22 @@ each as they finish:
                  policy is so sharp that the summation order moves it by
                  whole moves: printed, not checked).
                  Then the ``trunk_int8`` kernel, both ``stage_bf16``
-                 settings, against its plain version at B=1024 (bg 16) and
-                 B=24 (bg 8) on the same stem outputs: bit-exact; and
+                 settings, against its plain version at B=1024 (bg 16), B=24
+                 (bg 8) and B=3 on the same stem outputs: bit-exact; and
                  FusedInference(int8) with the kernel against the plain
-                 trunk. Then ``random_step`` against ``random_step_plain``
+                 trunk. Then ``trunk_wide`` on both weight sets as
+                 ``matmul9`` (batches 1024, 24, 3): the trunk equal bit for
+                 bit to its 20 convs, each conv within the bf16 default plus
+                 ``sum_error_bound`` plus one bf16 ulp of each tap's product
+                 (``trunk_wide.conv_bound``: the tensor cores' order of each
+                 tap's f32 dot can move its bf16 rounding by an ulp), and
+                 FusedInference(wide) at probs 0.03 / value 0.05 on the
+                 flax-init weights. Then ``trunk_int8_m9``,
+                 ``trunk_int8_patch`` and ``trunk_int8_flat`` against their
+                 plain version (the plain ``int8_dx3`` trunk on tap-major
+                 weights) at B=1024 (bg 32), 24 (bg 8) and 3 (bg 1):
+                 bit-exact, and FusedInference with each against the plain
+                 trunk: equal. Then ``random_step`` against ``random_step_plain``
                  on the card, fed the same words, every ply of 4,096 games
                  to their end for sizes 8, 6 and 4 under both rule sets,
                  then of the bench's 4,194,304 games at 8x8: bit-exact
@@ -76,11 +91,15 @@ each as they finish:
                  ``int8_dx3``; one training iteration), then ``--mode mcts
                  --net-variant int8``: ``trunk_int8`` launched 20 times a
                  network forward;
+    benchmark_model  the port's ``benchmark_model --fused`` in process over
+                 all nine ported variants (default batches 1-4096, chain 16,
+                 2 repeats): each table printed, every row at B >= 256 a
+                 number, each kernel launched 20 times a fused forward;
 10. profile      one ply's search at B=1024 under torch.profiler: wall
                  time, device-busy time and idle share, time by kernel;
-11. timing       the three trunk kernels and their plain versions at B=1024
-                 and, for ``matmul9``, the same folded tower as 20 cuDNN
-                 convolutions; ``random_step`` and its plain version for one
+11. timing       the seven trunk kernels and their plain versions at B=1024
+                 and, for ``matmul9`` and ``wide``, the same folded tower as
+                 20 cuDNN convolutions; ``random_step`` and its plain version for one
                  ply of 4,194,304 games (CUDA events; their outputs must be
                  bit-equal); the bounds, launches per forward.
 
@@ -101,7 +120,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from othello_reinforcement_learning_test_tpu_torch import bench
+from othello_reinforcement_learning_test_tpu_torch import bench, benchmark_model
 from othello_reinforcement_learning_test_tpu_torch.kernels import build
 from othello_reinforcement_learning_test_tpu_torch.kernels import random_step as rs
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8 import (
@@ -113,12 +132,32 @@ from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dx3 import
     trunk_int8_dx3,
     trunk_int8_dx3_plain,
 )
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_flat import (
+    trunk_int8_flat,
+    trunk_int8_flat_plain,
+)
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_m9 import (
+    trunk_int8_m9,
+    trunk_int8_m9_plain,
+)
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_patch import (
+    trunk_int8_patch,
+    trunk_int8_patch_plain,
+)
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_matmul9 import (
     conv_matmul9,
     conv_plain,
     sum_error_bound,
     trunk_matmul9,
     trunk_matmul9_plain,
+)
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_wide import (
+    conv_bound,
+    conv_wide,
+    conv_wide_plain,
+    hwio,
+    trunk_wide,
+    trunk_wide_plain,
 )
 from othello_reinforcement_learning_test_tpu_torch.models.convert import (
     from_jax_variables,
@@ -153,7 +192,19 @@ RANDOM_STEP_BYTES = 2 * 8 + 2 * 8 + 2 * 4 + 4
 RANDOM_GAMES = 4194304  # bench.py's random-mode batch with the kernel
 TRUNK_SOURCE = "othello_reinforcement_learning_test_tpu_torch/csrc/trunk_int8_dx3.cu"
 TRUNK_REPLACES = "othello_reinforcement_learning_test_tpu/models/pallas_resnet.py:318"
-KERNEL_SOURCES = ("trunk_int8_dx3", "trunk_matmul9", "trunk_int8", "random_step")
+PALLAS = "othello_reinforcement_learning_test_tpu/models/pallas_resnet.py"
+CSRC = "othello_reinforcement_learning_test_tpu_torch/csrc"
+# the int8 trunks of this slice: kernel, plain version, Pallas kernel's line
+INT8_VARIANTS = {"int8_m9": (trunk_int8_m9, trunk_int8_m9_plain, 192),
+                 "int8_patch": (trunk_int8_patch, trunk_int8_patch_plain, 230),
+                 "int8_flat": (trunk_int8_flat, trunk_int8_flat_plain, 264)}
+# benchmark_model.py --fused over every variant the port has
+BENCH_VARIANTS = ("matmul9", "wide", "int8", "int8_bf16", "int8_m9", "int8_patch", "int8_flat",
+                  "int8_dx3", "int8_xla")
+VARIANT_KERNEL = {"matmul9": trunk_matmul9, "wide": trunk_wide, "int8": trunk_int8,
+                  "int8_bf16": trunk_int8, "int8_m9": trunk_int8_m9,
+                  "int8_patch": trunk_int8_patch, "int8_flat": trunk_int8_flat,
+                  "int8_dx3": trunk_int8_dx3}
 M9_SOURCE = "othello_reinforcement_learning_test_tpu_torch/csrc/trunk_matmul9.cu"
 M9_REPLACES = "othello_reinforcement_learning_test_tpu/models/pallas_resnet.py:61"
 INT8_SOURCE = "othello_reinforcement_learning_test_tpu_torch/csrc/trunk_int8.cu"
@@ -261,51 +312,69 @@ def trunk_bound_ms(batch: int, layers: int, channels: int, bf16: bool = False) -
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_matmul9(fused_m9, feats, weights: str, check_forward: bool) -> float:
-    """The matmul9 kernel against its plain version at B=1024 and B=24 (see
-    the module docstring); returns the largest per-conv difference."""
-    w, b = fused_m9.trunk_w, fused_m9.trunk_bias
+def matmul9_bound(src, w, b, want):
+    """PyTorch's bf16 default plus the f32 summation bound of one conv."""
+    return 1e-5 + 1.6e-2 * want.float().abs() + sum_error_bound(src, w, b)
+
+
+def check_bf16_convs(name, trunk, trunk_plain, conv, conv_ref, bound, fused, feats,
+                     weights: str, batches=(GAMES, 24, 3)) -> float:
+    """A bf16 trunk kernel against its plain version (see the module
+    docstring): the whole trunk equal bit for bit to its 20 convs launched
+    one by one, and each conv within ``bound(src, w, b, want)`` of the plain
+    conv on the plain chain's own input. Returns the largest per-conv
+    difference."""
+    w, b = fused.trunk_w, fused.trunk_bias
     max_abs_err = 0.0
-    for batch in (GAMES, 24):
-        h = fused_m9.stem(feats[:batch])
-        out_k = trunk_matmul9(h, w, b)
-        out_p = trunk_matmul9_plain(h, w, b)
+    for batch in batches:
+        h = fused.stem(feats[:batch])
+        out_k = trunk(h, w, b)
         # the same 20 convs launched one by one: the kernel sums in a fixed
         # order, so the trunk's loop (layer, residual, in-place conv 1) must
         # give this chain bit for bit
         chain = h
         for i in range(0, w.shape[0], 2):
-            y = conv_matmul9(chain, w[i], b[i])
-            chain = conv_matmul9(y, w[i + 1], b[i + 1], resid=chain)
+            y = conv(chain, w[i], b[i])
+            chain = conv(y, w[i + 1], b[i + 1], resid=chain)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(out_k.float()).all()), "finite matmul9 output")
-        check(torch.equal(out_k, chain), f"trunk_matmul9 == its 20 convs chained at B={batch}")
+        check(bool(torch.isfinite(out_k.float()).all()), f"finite {name} output")
+        check(torch.equal(out_k, chain), f"{name} == its 20 convs chained at B={batch}")
+        out_p = trunk_plain(h, w, b)
         trunk_diff = (out_k.float() - out_p.float()).abs()
         n_diff, n_default, n_bad, conv_err = 0, 0, 0, 0.0
         for i in range(w.shape[0]):  # every conv, on the plain chain's own inputs
             resid = h if i % 2 else None
             src = y if i % 2 else h
-            got = conv_matmul9(src, w[i], b[i], resid).float()
-            want = conv_plain(src, w[i], b[i], resid)
+            got = conv(src, w[i], b[i], resid).float()
+            want = conv_ref(src, w[i], b[i], resid)
             diff = (got - want.float()).abs()
-            allowed = 1e-5 + 1.6e-2 * want.float().abs()
             n_diff += int((diff != 0).sum())
-            n_default += int((diff > allowed).sum())
-            n_bad += int((diff > allowed + sum_error_bound(src, w[i], b[i])).sum())
+            n_default += int((diff > 1e-5 + 1.6e-2 * want.float().abs()).sum())
+            n_bad += int((diff > bound(src, w[i], b[i], want)).sum())
             conv_err = max(conv_err, float(diff.max()))
             if i % 2:
                 h = want
             else:
                 y = want
         max_abs_err = max(max_abs_err, conv_err)
-        phase("kernel_check", kernel="trunk_matmul9", weights=weights, batch=batch,
+        phase("kernel_check", kernel=name, weights=weights, batch=batch,
               convs_differing=n_diff, convs_outside_bf16_default=n_default,
               convs_outside_tolerance=n_bad, of=out_k.numel() * w.shape[0],
               conv_max_abs_diff=conv_err, trunk_differing=int((trunk_diff != 0).sum()),
               trunk_of=out_k.numel(), trunk_max_abs_diff=float(trunk_diff.max()),
               trunk_equals_chained_convs=True)
-        check(n_bad == 0, f"every matmul9 conv within tolerance of the plain conv at "
+        check(n_bad == 0, f"every {name} conv within tolerance of the plain conv at "
               f"B={batch} ({n_bad} elements outside)")
+    return max_abs_err
+
+
+def check_matmul9(fused_m9, feats, weights: str, check_forward: bool) -> float:
+    """The matmul9 kernel against its plain version at B=1024, 24 and 3 (see
+    the module docstring); returns the largest per-conv difference."""
+    w, b = fused_m9.trunk_w, fused_m9.trunk_bias
+    max_abs_err = check_bf16_convs("trunk_matmul9", trunk_matmul9, trunk_matmul9_plain,
+                                   conv_matmul9, conv_plain, matmul9_bound, fused_m9, feats,
+                                   weights)
     h = fused_m9.stem(feats)
     plain = trunk_matmul9_plain(h, w, b)
     lp_k, v_k = fused_m9(feats)
@@ -337,6 +406,59 @@ def check_matmul9(fused_m9, feats, weights: str, check_forward: bool) -> float:
     if check_forward:
         check(dp <= 0.03 and dv <= 0.05, "FusedInference(matmul9) within probs 0.03, value 0.05")
     return max_abs_err
+
+
+def check_wide(fused_w, feats, weights: str, check_forward: bool) -> float:
+    """The wide kernel against its plain version at B=1024, 24 and 3, conv by
+    conv within ``conv_bound`` (PyTorch's bf16 default, the f32 summation
+    bound and one bf16 ulp of each tap's product), the trunk equal to its 20
+    convs; FusedInference(wide) against the plain trunk at probs 0.03 /
+    value 0.05 where ``check_forward``. Returns the largest per-conv
+    difference."""
+    err = check_bf16_convs("trunk_wide", trunk_wide, trunk_wide_plain, conv_wide,
+                           conv_wide_plain, conv_bound, fused_w, feats, weights)
+    lp_k, v_k = fused_w(feats)
+    lp_p, v_p = fused_w.heads(trunk_wide_plain(fused_w.stem(feats), fused_w.trunk_w,
+                                               fused_w.trunk_bias))
+    dp = float((lp_k.exp() - lp_p.exp()).abs().max())
+    dv = float((v_k - v_p).abs().max())
+    phase("kernel_check", what="FusedInference(wide) kernel vs plain trunk", weights=weights,
+          batch=feats.shape[0], max_abs_diff_probs=dp, max_abs_diff_value=dv,
+          checked=check_forward)
+    if check_forward:
+        check(dp <= 0.03 and dv <= 0.05, "FusedInference(wide) within probs 0.03, value 0.05")
+    return err
+
+
+def check_int8_variants(model, feats) -> dict:
+    """The int8_m9, int8_patch and int8_flat kernels against their plain
+    versions at B=1024, 24 and 3 (bg 32, 8 and 1), bit for bit, and
+    FusedInference with each kernel against the plain trunk. Returns
+    {variant: (largest difference, FusedInference)}."""
+    out = {}
+    for variant, (kernel, plain, _) in INT8_VARIANTS.items():
+        fused = FusedInference(model, variant=variant)
+        args = (fused.trunk_w, fused.trunk_scale, fused.trunk_bias, fused.block_games)
+        err = 0.0
+        for batch in (GAMES, 24, 3):
+            h = fused.stem(feats[:batch])
+            out_k = kernel(h, *args)
+            out_p = plain(h, *args)
+            torch.cuda.synchronize()
+            diff = (out_k.float() - out_p.float()).abs()
+            n_diff = int((diff != 0).sum())
+            err = max(err, float(diff.max()))
+            check(bool(torch.isfinite(out_k.float()).all()), f"finite {variant} output")
+            phase("kernel_check", kernel=kernel.__name__, batch=batch,
+                  block_games=block_size(batch, fused.block_games), differing=n_diff,
+                  of=out_k.numel(), max_abs_diff=float(diff.max()))
+            check(n_diff == 0, f"{kernel.__name__} == plain version at B={batch}")
+        lp_k, v_k = fused(feats)
+        lp_p, v_p = fused.heads(plain(fused.stem(feats), *args))
+        check(torch.equal(lp_k, lp_p) and torch.equal(v_k, v_p),
+              f"FusedInference({variant}) kernel == plain trunk")
+        out[variant] = (err, fused)
+    return out
 
 
 def train_step_check(engine, feats: torch.Tensor, rng: np.random.Generator) -> None:
@@ -469,13 +591,13 @@ def train_iteration(dev) -> int:
 
 def check_trunk_int8(model, feats) -> tuple:
     """The trunk_int8 kernel against its plain version, both stage_bf16
-    settings, at B=1024 and B=24, bit for bit; returns (largest difference,
+    settings, at B=1024, 24 and 3, bit for bit; returns (largest difference,
     FusedInference(int8))."""
     fused8 = FusedInference(model, variant="int8")
     w, ws, b = fused8.trunk_w, fused8.trunk_scale, fused8.trunk_bias
     err = 0.0
     for stage in (False, True):
-        for batch in (GAMES, 24):
+        for batch in (GAMES, 24, 3):
             h = fused8.stem(feats[:batch])
             out_k = trunk_int8(h, w, ws, b, stage_bf16=stage)
             out_p = trunk_int8_plain(h, w, ws, b, stage_bf16=stage)
@@ -654,6 +776,49 @@ def bench_phase() -> tuple:
     return step_launches, int8_launches
 
 
+def benchmark_model_phase() -> dict:
+    """The port's benchmark_model in process: ``--fused --fused-variants``
+    every ported variant, default batches, ``--chain 16 --repeats 2``. Each
+    variant's boards/s table is printed; every row at B >= 256 must be a
+    number; each kernel's launches must be 20 x the forwards of the
+    variants that run it. Returns the launches of each kernel."""
+    forwards = {}
+    trunk = FusedInference.trunk
+
+    def counted_trunk(self, h):
+        forwards[self.variant] = forwards.get(self.variant, 0) + 1
+        return trunk(self, h)
+
+    kernels = set(VARIANT_KERNEL.values())
+    for kernel in kernels:
+        kernel.launches = 0
+    argv = ["--fused", "--fused-variants", *BENCH_VARIANTS, "--chain", "16", "--repeats", "2"]
+    FusedInference.trunk = counted_trunk
+    try:
+        out = benchmark_model.run(argv)
+    finally:
+        FusedInference.trunk = trunk
+    tables = {}
+    for row in out["rows"]:
+        tables.setdefault(row["table"], {})[row["batch"]] = (
+            round(row["boards_per_s"], 1) if row["status"] == "ok" else row["status"])
+    phase("benchmark_model", argv=" ".join(argv), dispatch_ms=out["dispatch_ms"],
+          params=out["params"], memory_mib=out["memory_mib"], forwards=forwards,
+          boards_per_s=tables)
+    bad = [(t, b, v) for t, row in tables.items() for b, v in row.items()
+           if b >= 256 and not isinstance(v, float)]
+    check(not bad, f"every benchmark_model row at B >= 256 is a number ({bad})")
+    check(set(tables) == {"bf16", "f32", *BENCH_VARIANTS}, "a table for every variant")
+    launches = {}
+    for kernel in kernels:
+        want = 2 * NUM_BLOCKS * sum(n for v, n in forwards.items()
+                                    if VARIANT_KERNEL.get(v) is kernel)
+        check(want > 0 and kernel.launches == want,
+              f"{kernel.__name__} launches {kernel.launches} == 20 x its forwards ({want})")
+        launches[kernel.__name__] = kernel.launches
+    return launches
+
+
 def cudnn_tower(h: torch.Tensor, w: list, b: torch.Tensor) -> torch.Tensor:
     """The folded matmul9 tower as 20 bf16 cuDNN convolutions with ReLU and
     the residual add: the library yardstick. h: (B, S, S, C), whose NCHW
@@ -683,8 +848,8 @@ def main() -> int:
           torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:  # one nvcc per source, together
-        builds = dict(zip(KERNEL_SOURCES, pool.map(build.build, KERNEL_SOURCES)))
+    with ThreadPoolExecutor(len(build.SOURCES)) as pool:  # one nvcc per source, together
+        builds = dict(zip(build.SOURCES, pool.map(build.build, build.SOURCES)))
     for kname, built in builds.items():
         ptxas = [ln.strip() for ln in built.log.splitlines()
                  if "registers" in ln or "smem" in ln or "spill" in ln]
@@ -703,7 +868,7 @@ def main() -> int:
     feats = engine.features(random_positions(engine, GAMES, 40, rng, dev))
     w, ws, b = fused.trunk_w, fused.trunk_scale, fused.trunk_bias
     max_abs_err = 0.0
-    for batch in (GAMES, 24):
+    for batch in (GAMES, 24, 3):
         h = fused.stem(feats[:batch])
         out_k = trunk_int8_dx3(h, w, ws, b)
         out_p = trunk_int8_dx3_plain(h, w, ws, b)
@@ -739,6 +904,11 @@ def main() -> int:
     m9_max_abs_err = max(m9_max_abs_err, check_matmul9(fused_m9, feats, "flax_init",
                                                        check_forward=True))
     int8_max_abs_err, fused8 = check_trunk_int8(model, feats)
+    # wide on both weight sets too; its forward bar only on the trainer's
+    wide_max_abs_err = max(
+        check_wide(FusedInference(model, variant="wide"), feats, "he_normal", False),
+        check_wide(FusedInference(model_t, variant="wide"), feats, "flax_init", True))
+    variants = check_int8_variants(model, feats)
     step_max_abs_err = check_random_step(dev)
 
     # engine: the same random plies on the card and on the CPU
@@ -806,6 +976,7 @@ def main() -> int:
     train_step_check(engine, feats.cpu(), rng)
     m9_launches = train_iteration(dev)
     step_launches, int8_launches = bench_phase()
+    variant_launches = benchmark_model_phase()
 
     # timing at the main paths' shape (B=1024)
     h = fused.stem(feats)
@@ -845,6 +1016,22 @@ def main() -> int:
     step_bound_ms, step_bound_by = ((step_t_ops, "operations") if step_t_ops >= step_t_bytes
                                     else (step_t_bytes, "bytes"))
     del big, big_words, new_k, live_k, new_p, live_p, d
+    fused_w = FusedInference(model_t, variant="wide")
+    hw, ww, bw = fused_w.stem(feats), fused_w.trunk_w, fused_w.trunk_bias
+    wide_ms = time_ms(lambda: trunk_wide(hw, ww, bw), reps=20)
+    wide_plain_ms = time_ms(lambda: trunk_wide_plain(hw, ww, bw), reps=3, warmup=1)
+    wide_forward_ms = time_ms(lambda: fused_w(feats), reps=20)
+    w_wide = [hwio(wl).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+              for wl in ww]
+    wide_cudnn_ms = time_ms(lambda: cudnn_tower(hw, w_wide, bw.to(torch.bfloat16)), reps=20)
+    variant_ms = {}
+    for variant, (kernel, plain, _) in INT8_VARIANTS.items():
+        fv = variants[variant][1]
+        hv, args = fv.stem(feats), (fv.trunk_w, fv.trunk_scale, fv.trunk_bias, fv.block_games)
+        variant_ms[variant] = (time_ms(lambda: kernel(hv, *args), reps=20),
+                               time_ms(lambda: plain(hv, *args), reps=3, warmup=1),
+                               time_ms(lambda: fv(feats), reps=20))
+        check(torch.equal(kernel(hv, *args), plain(hv, *args)), f"timed {variant} == plain")
     boards = random_positions(engine, GAMES, 20, rng, dev)
     phase("profile", what=f"one search at B={GAMES}, {SIMS} simulations, 20 plies in",
           **profile_search(engine, fused, boards))
@@ -861,6 +1048,16 @@ def main() -> int:
           kernel_bf16_ms=int8_bf16_ms, plain_ms=int8_plain_ms,
           plain_bf16_ms=int8_bf16_plain_ms, bound_ms=bound_ms, bound_by=bound_by,
           fused_forward_ms=int8_forward_ms, launches_per_forward=layers, library_ms=None)
+    phase("timing", kernel="trunk_wide", batch=GAMES, kernel_ms=wide_ms,
+          plain_ms=wide_plain_ms, bound_ms=m9_bound_ms, bound_by=m9_bound_by,
+          fused_forward_ms=wide_forward_ms, launches_per_forward=layers,
+          library_ms=wide_cudnn_ms, library="the same cuDNN tower as trunk_matmul9's, on "
+          "the wide trunk's weights")
+    for variant, (k_ms, p_ms, f_ms) in variant_ms.items():
+        phase("timing", kernel=INT8_VARIANTS[variant][0].__name__, batch=GAMES,
+              block_games=block_size(GAMES, 32), kernel_ms=k_ms, plain_ms=p_ms,
+              bound_ms=bound_ms, bound_by=bound_by, fused_forward_ms=f_ms,
+              launches_per_forward=layers, library_ms=None)
     phase("timing", kernel="random_step", games=RANDOM_GAMES, kernel_ms=step_ms,
           plain_ms=step_plain_ms, bound_ms=step_bound_ms, bound_by=step_bound_by,
           bytes_ms=step_t_bytes, operations_ms=step_t_ops, ops_per_game=RANDOM_STEP_OPS,
@@ -886,7 +1083,19 @@ def main() -> int:
         "replaces": STEP_REPLACES, "launches": step_launches,
         "max_abs_err": step_max_abs_err, "ms": step_ms, "plain_ms": step_plain_ms,
         "bound_ms": step_bound_ms, "bound_by": step_bound_by, "library_ms": None,
+    }, {
+        "name": "trunk_wide", "route": "cuda", "source": f"{CSRC}/trunk_wide.cu",
+        "replaces": f"{PALLAS}:127", "launches": variant_launches["trunk_wide"],
+        "max_abs_err": wide_max_abs_err, "ms": wide_ms, "plain_ms": wide_plain_ms,
+        "bound_ms": m9_bound_ms, "bound_by": m9_bound_by, "library_ms": wide_cudnn_ms,
     }]
+    for variant, (kernel, _, line) in INT8_VARIANTS.items():
+        k_ms, p_ms, _ = variant_ms[variant]
+        kernels.append({
+            "name": kernel.__name__, "route": "cuda", "source": f"{CSRC}/{kernel.__name__}.cu",
+            "replaces": f"{PALLAS}:{line}", "launches": variant_launches[kernel.__name__],
+            "max_abs_err": variants[variant][0], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     phase("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,4 +1,5 @@
-// Pieces shared by the int8 trunk kernels (trunk_int8_dx3.cu, trunk_int8.cu):
+// Pieces shared by the int8 trunk kernels (trunk_int8_dx3.cu, trunk_int8.cu,
+// trunk_int8_m9.cu, trunk_int8_patch.cu, trunk_int8_flat.cu):
 // the activation scale and quantisation, the s8 mma.sync, the warp max, and
 // the pre-pass that converts the bf16 trunk input to f32 and reduces the
 // first layer's per-block amax. Included inside each kernel's anonymous

@@ -21,12 +21,10 @@ CPU; the two agree bit for bit.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from . import build
-from .trunk_int8_dx3 import block_size, check_int8_args, int8_trunk, launch_int8_trunk
+from .trunk_int8_dx3 import (block_size, check_int8_args, int8_library, int8_trunk,
+                             launch_int8_trunk)
 from .trunk_matmul9 import OFFSETS
 
 DEFAULT_BLOCK_GAMES = 16  # the JAX package's FusedInference default for int8
@@ -49,17 +47,6 @@ def trunk_int8_plain(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
                       stage_bf16).to(torch.bfloat16)
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("trunk_int8")
-    if lib.trunk_int8_conv.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.trunk_int8_prepass.argtypes = [p, p, p, i, i, i, p]
-        lib.trunk_int8_prepass.restype = i
-        lib.trunk_int8_conv.argtypes = [p] * 8 + [i] * 7 + [p]
-        lib.trunk_int8_conv.restype = i
-    return lib
-
-
 def trunk_int8(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
                bias: torch.Tensor, block_games: int = DEFAULT_BLOCK_GAMES,
                stage_bf16: bool = False) -> torch.Tensor:
@@ -77,7 +64,7 @@ def trunk_int8(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
         return trunk_int8_plain(x, w, w_scale, bias, block_games, stage_bf16)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    lib = _library()
+    lib = int8_library("trunk_int8", "trunk_int8", num_flags=1)
     return launch_int8_trunk(trunk_int8, lib.trunk_int8_prepass, lib.trunk_int8_conv,
                              x, w, w_scale, bias, block_games, int(stage_bf16))
 

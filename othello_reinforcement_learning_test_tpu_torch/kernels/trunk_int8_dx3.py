@@ -130,14 +130,18 @@ def check_int8_args(x, w, w_scale, bias, w_tail) -> int:
     return L
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("trunk_int8_dx3")
-    if lib.trunk_dx3_conv.argtypes is None:
+def int8_library(name: str, prefix: str, num_flags: int = 0) -> ctypes.CDLL:
+    """Load ``csrc/<name>.cu`` (built on first use) and declare its
+    ``<prefix>_prepass`` and ``<prefix>_conv``; ``num_flags`` is the count
+    of the conv's own trailing int arguments."""
+    lib = build.load(name)
+    prepass, conv = getattr(lib, f"{prefix}_prepass"), getattr(lib, f"{prefix}_conv")
+    if conv.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.trunk_dx3_prepass.argtypes = [p, p, p, i, i, i, p]
-        lib.trunk_dx3_prepass.restype = i
-        lib.trunk_dx3_conv.argtypes = [p] * 8 + [i] * 6 + [p]
-        lib.trunk_dx3_conv.restype = i
+        prepass.argtypes = [p, p, p, i, i, i, p]
+        prepass.restype = i
+        conv.argtypes = [p] * 8 + [i] * (6 + num_flags) + [p]
+        conv.restype = i
     return lib
 
 
@@ -196,7 +200,7 @@ def trunk_int8_dx3(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
         return trunk_int8_dx3_plain(x, w, w_scale, bias, block_games)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    lib = _library()
+    lib = int8_library("trunk_int8_dx3", "trunk_dx3")
     return launch_int8_trunk(trunk_int8_dx3, lib.trunk_dx3_prepass, lib.trunk_dx3_conv,
                              x, w, w_scale, bias, block_games)
 

@@ -1,0 +1,58 @@
+"""The ``int8_patch`` residual trunk: CUDA kernel wrapper and plain version.
+
+Replaces the Pallas TPU kernel ``_trunk_kernel_int8_patch``
+(``othello_reinforcement_learning_test_tpu/models/pallas_resnet.py:230``),
+reached through ``fused_trunk_int8(kernel="patch")``. The kernel is
+``csrc/trunk_int8_patch.cu``; its note states the bound and the design:
+an int8 im2col patch built from a zero-padded tile, then one
+(rows, 9C) @ (9C, C) product.
+
+It computes the ``int8_dx3`` function (per-block activation scale,
+per-output-channel weight scale; integer sums are exact in any order), so
+its plain version is the plain ``int8_dx3`` trunk on the same tap-major
+weights, and the two agree bit for bit. :func:`trunk_int8_patch` launches
+the kernel for a CUDA tensor and uses :func:`trunk_int8_patch_plain` only
+for a tensor on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .trunk_int8_dx3 import (block_size, check_int8_args, int8_library, int8_trunk,
+                             launch_int8_trunk)
+from .trunk_matmul9 import OFFSETS
+
+DEFAULT_BLOCK_GAMES = 32  # the JAX package's FusedInference default for int8_patch
+
+
+def trunk_int8_patch_plain(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
+                           bias: torch.Tensor,
+                           block_games: int = DEFAULT_BLOCK_GAMES) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: bf16 (B, S, S, C) in, bf16 out,
+    any S and C; w: (L, 9C, C) int8, rows in ``OFFSETS`` order then C_in."""
+    bg = block_size(x.shape[0], block_games)
+    return int8_trunk(x.to(torch.float32), w, OFFSETS, w_scale, bias, bg).to(torch.bfloat16)
+
+
+def trunk_int8_patch(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
+                     bias: torch.Tensor, block_games: int = DEFAULT_BLOCK_GAMES) -> torch.Tensor:
+    """Int8 residual trunk. x: (B, S, S, C) bf16; w: (L, 9C, C) int8
+    tap-major rows; w_scale, bias: (L, C) f32. Returns bf16 (B, S, S, C).
+
+    On a CUDA tensor this launches the hand-written kernel (one launch per
+    conv, each counted in ``trunk_int8_patch.launches``; 8x8 boards and 128
+    channels only) or raises; the plain version runs only for a tensor on
+    the CPU.
+    """
+    check_int8_args(x, w, w_scale, bias, lambda C: (9 * C, C))
+    if x.device.type == "cpu":
+        return trunk_int8_patch_plain(x, w, w_scale, bias, block_games)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    lib = int8_library("trunk_int8_patch", "trunk_patch")
+    return launch_int8_trunk(trunk_int8_patch, lib.trunk_patch_prepass, lib.trunk_patch_conv,
+                             x, w, w_scale, bias, block_games)
+
+
+trunk_int8_patch.launches = 0

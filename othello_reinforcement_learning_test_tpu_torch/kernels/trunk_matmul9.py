@@ -72,14 +72,18 @@ def trunk_matmul9_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) ->
     return h
 
 
-def _check(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, blocks: bool = True) -> int:
+def check_bf16_args(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, w_tail,
+                    blocks: bool = True) -> int:
+    """Check a bf16 trunk's (or, with ``blocks=False``, one conv's)
+    arguments; ``w_tail(C)`` is the weights' shape after L. On CUDA, 8x8
+    boards and 128 channels only. Returns L."""
     if x.dim() != 4 or x.shape[1] != x.shape[2] or x.dtype != torch.bfloat16:
         raise ValueError(f"x must be bf16 (B, S, S, C), got {x.dtype} {tuple(x.shape)}")
     C = x.shape[3]
-    if w.dim() != 5 or w.shape[1:] != (3, 3, C, C) or w.dtype != torch.bfloat16 \
+    if w.dim() != 1 + len(w_tail(C)) or w.shape[1:] != w_tail(C) or w.dtype != torch.bfloat16 \
             or (blocks and w.shape[0] % 2) or w.shape[0] == 0:
-        raise ValueError(f"w must be bf16 (L, 3, 3, {C}, {C}) with even L > 0, "
-                         f"got {w.dtype} {tuple(w.shape)}")
+        raise ValueError(f"w must be bf16 (L, {', '.join(map(str, w_tail(C)))}) with even "
+                         f"L > 0, got {w.dtype} {tuple(w.shape)}")
     L = w.shape[0]
     if bias.shape != (L, C) or bias.dtype != torch.float32:
         raise ValueError(f"bias must be f32 ({L}, {C}), got {bias.dtype} {tuple(bias.shape)}")
@@ -89,32 +93,62 @@ def _check(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, blocks: bool = 
     for t in (x, w, bias):
         if not t.is_contiguous():
             raise ValueError("all tensors must be contiguous")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    if x.device.type == "cuda" and (x.shape[2], C) != (8, 128):
+        raise ValueError(f"the CUDA kernel takes 8x8 boards and 128 channels, "
+                         f"got S={x.shape[2]} C={C}")
     return L
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("trunk_matmul9")
-    if lib.trunk_m9_conv.argtypes is None:
+def bf16_conv_function(name: str, symbol: str):
+    """``symbol`` of ``csrc/<name>.cu`` (built on first use), declared as a
+    bf16 conv: (in, resid, out, w, bias, B, is_conv1, stream)."""
+    fn = getattr(build.load(name), symbol)
+    if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.trunk_m9_conv.argtypes = [p] * 5 + [i] * 2 + [p]
-        lib.trunk_m9_conv.restype = i
-    return lib
+        fn.argtypes = [p] * 5 + [i] * 2 + [p]
+        fn.restype = i
+    return fn
 
 
-def _launch(lib, h, resid, out, w_layer, bias_layer) -> None:
-    rc = lib.trunk_m9_conv(h.data_ptr(), None if resid is None else resid.data_ptr(),
-                           out.data_ptr(), w_layer.data_ptr(), bias_layer.data_ptr(),
-                           h.shape[0], int(resid is not None),
-                           torch.cuda.current_stream(h.device).cuda_stream)
+def launch_bf16_conv(wrapper, fn, h, resid, out, w_layer, bias_layer) -> None:
+    """One conv launch, counted in ``wrapper.launches``."""
+    rc = fn(h.data_ptr(), None if resid is None else resid.data_ptr(), out.data_ptr(),
+            w_layer.data_ptr(), bias_layer.data_ptr(), h.shape[0], int(resid is not None),
+            torch.cuda.current_stream(h.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"trunk_matmul9 conv kernel failed: CUDA error {rc}")
-    trunk_matmul9.launches += 1
+        raise RuntimeError(f"{wrapper.__name__} conv kernel failed: CUDA error {rc}")
+    wrapper.launches += 1
 
 
-def _check_board(x: torch.Tensor) -> None:
-    S, C = x.shape[2], x.shape[3]
-    if (S, C) != (8, 128):
-        raise ValueError(f"the CUDA kernel takes 8x8 boards and 128 channels, got S={S} C={C}")
+def launch_bf16_trunk(wrapper, fn, x: torch.Tensor, w: torch.Tensor,
+                      bias: torch.Tensor) -> torch.Tensor:
+    """The launch sequence the bf16 trunk kernels share: one launch per
+    conv, the second conv of a block updating the block's output in place."""
+    with torch.cuda.device(x.device):
+        y = torch.empty_like(x)
+        out = torch.empty_like(x)
+        for i in range(w.shape[0] // 2):
+            h = x if i == 0 else out  # the block's input; conv 1 updates out in place
+            launch_bf16_conv(wrapper, fn, h, None, y, w[2 * i], bias[2 * i])
+            launch_bf16_conv(wrapper, fn, y, h, out, w[2 * i + 1], bias[2 * i + 1])
+    return out
+
+
+def launch_bf16_one_conv(wrapper, fn, h, w, bias, resid) -> torch.Tensor:
+    """One conv with its epilogue on the card (after checking ``resid``)."""
+    if resid is not None and (resid.shape != h.shape or resid.dtype != h.dtype
+                              or resid.device != h.device or not resid.is_contiguous()):
+        raise ValueError("resid must be a contiguous tensor like h")
+    with torch.cuda.device(h.device):
+        out = torch.empty_like(h)
+        launch_bf16_conv(wrapper, fn, h, resid, out, w, bias)
+    return out
+
+
+def _hwio(C: int) -> tuple:
+    return (3, 3, C, C)
 
 
 def trunk_matmul9(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -125,21 +159,11 @@ def trunk_matmul9(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch
     conv, each counted in ``trunk_matmul9.launches``) or raises; the plain
     version runs only for a tensor on the CPU.
     """
-    L = _check(x, w, bias)
+    check_bf16_args(x, w, bias, _hwio)
     if x.device.type == "cpu":
         return trunk_matmul9_plain(x, w, bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    _check_board(x)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        y = torch.empty_like(x)
-        out = torch.empty_like(x)
-        for i in range(L // 2):
-            h = x if i == 0 else out  # the block's input; conv 1 updates out in place
-            _launch(lib, h, None, y, w[2 * i], bias[2 * i])
-            _launch(lib, y, h, out, w[2 * i + 1], bias[2 * i + 1])
-    return out
+    return launch_bf16_trunk(trunk_matmul9, bf16_conv_function("trunk_matmul9", "trunk_m9_conv"),
+                             x, w, bias)
 
 
 trunk_matmul9.launches = 0
@@ -152,17 +176,8 @@ def conv_matmul9(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     the kernel for a CUDA tensor (counted in ``trunk_matmul9.launches``),
     the plain version for a CPU one. Lets a check hold each conv against
     the plain version on the same input."""
-    _check(h, w[None], bias[None], blocks=False)
-    if resid is not None and (resid.shape != h.shape or resid.dtype != h.dtype
-                              or resid.device != h.device or not resid.is_contiguous()):
-        raise ValueError("resid must be a contiguous tensor like h")
+    check_bf16_args(h, w[None], bias[None], _hwio, blocks=False)
     if h.device.type == "cpu":
         return conv_plain(h, w, bias, resid)
-    if h.device.type != "cuda":
-        raise ValueError(f"unsupported device {h.device}")
-    _check_board(h)
-    lib = _library()
-    with torch.cuda.device(h.device):
-        out = torch.empty_like(h)
-        _launch(lib, h, resid, out, w, bias)
-    return out
+    return launch_bf16_one_conv(
+        trunk_matmul9, bf16_conv_function("trunk_matmul9", "trunk_m9_conv"), h, w, bias, resid)

@@ -1,17 +1,21 @@
 """Eval-mode forward with the hand-written trunk kernel.
 
 Host half of ``othello_reinforcement_learning_test_tpu/models/
-pallas_resnet.py``: BatchNorm folding, the dx3 weight relayout, the
-block-size rule and ``FusedInference``. The stem and the two heads are
-plain bf16 PyTorch ops, as the JAX package leaves them to XLA; the residual
-tower goes through a hand-written kernel: ``kernels/trunk_int8_dx3.py``
-(variant ``int8_dx3``), ``kernels/trunk_matmul9.py`` (variant ``matmul9``)
-or ``kernels/trunk_int8.py`` (variants ``int8`` and ``int8_bf16``). Variant
-``int8_xla`` has no kernel in the JAX package either: it is the plain
-quantized trunk with one activation scale per batch, on both devices.
+pallas_resnet.py``: BatchNorm folding, the weight relayouts of each trunk
+kernel, the per-variant block sizes and ``FusedInference``. The stem and
+the two heads are plain bf16 PyTorch ops, as the JAX package leaves them to
+XLA; the residual tower goes through a hand-written kernel:
 
-``ROADMAP.md`` lists the other variants of the JAX package's
-``FusedInference.VARIANTS`` as not yet ported.
+- ``matmul9``: ``kernels/trunk_matmul9.py``; ``wide``: ``kernels/trunk_wide.py``;
+- ``int8`` and ``int8_bf16``: ``kernels/trunk_int8.py``;
+- ``int8_m9``, ``int8_patch``, ``int8_flat`` and ``int8_dx3``:
+  ``kernels/trunk_int8_m9.py``, ``trunk_int8_patch.py``,
+  ``trunk_int8_flat.py`` and ``trunk_int8_dx3.py``.
+
+Variant ``int8_xla`` has no kernel in the JAX package either: it is the
+plain quantized trunk with one activation scale per batch, on both devices.
+``ROADMAP.md`` lists ``int8_dxcat``, the one variant of the JAX package's
+``FusedInference.VARIANTS`` not yet ported.
 """
 
 from __future__ import annotations
@@ -20,13 +24,24 @@ from typing import Tuple
 
 import torch
 
-from ..kernels import trunk_int8 as out_shift
-from ..kernels.trunk_int8_dx3 import DEFAULT_BLOCK_GAMES, trunk_int8_dx3
+from ..kernels.trunk_int8 import tap_major, trunk_int8
+from ..kernels.trunk_int8_dx3 import trunk_int8_dx3
+from ..kernels.trunk_int8_flat import trunk_int8_flat
+from ..kernels.trunk_int8_m9 import trunk_int8_m9
+from ..kernels.trunk_int8_patch import trunk_int8_patch
 from ..kernels.trunk_matmul9 import trunk_matmul9
+from ..kernels.trunk_wide import trunk_wide
 from .resnet import OthelloResNet
 
 BN_EPS = 1e-5
-PORTED_VARIANTS = ("int8_dx3", "matmul9", "int8", "int8_bf16", "int8_xla")
+PORTED_VARIANTS = ("int8_dx3", "matmul9", "wide", "int8", "int8_bf16", "int8_m9",
+                   "int8_patch", "int8_flat", "int8_xla")
+# games per activation-scale block when ``block_games`` is 0: the JAX
+# package's table (``pallas_resnet.py:619-623``); halved until it divides
+# the batch. 0 for int8_xla: one scale per batch.
+DEFAULT_BLOCK_GAMES = {"matmul9": 32, "wide": 16, "int8": 16, "int8_bf16": 16,
+                       "int8_m9": 32, "int8_patch": 32, "int8_flat": 32, "int8_dx3": 64,
+                       "int8_dxcat": 64, "int8_xla": 0}
 
 
 def _bn_affine(bn: torch.nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -53,6 +68,23 @@ def fold_block_params(model: OthelloResNet) -> Tuple[torch.Tensor, torch.Tensor]
     return torch.stack(ws), torch.stack(bs)
 
 
+@torch.no_grad()
+def fold_block_params_wide(model: OthelloResNet) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The folded trunk laid out for the ``wide`` kernel: (w (L, C, 9C)
+    bf16, bias (L, C) f32), tap k's (C_in, C_out) block in columns
+    [k*C, (k+1)*C), k row-major over (dy, dx)."""
+    w, b = fold_block_params(model)
+    L, _, _, C, _ = w.shape
+    return w.reshape(L, 9, C, C).permute(0, 2, 1, 3).reshape(L, C, 9 * C).contiguous(), b
+
+
+def m9_weights(w_int8: torch.Tensor) -> torch.Tensor:
+    """(L, C, 9C) tap-major int8 weights -> (L, 9, C, C): one square
+    (C_in, C_out) matrix per tap, as ``fused_trunk_int8(kernel="m9")``."""
+    L, C, _ = w_int8.shape
+    return w_int8.reshape(L, C, 9, C).permute(0, 2, 1, 3).contiguous()
+
+
 def dx3_weights(w_int8: torch.Tensor) -> torch.Tensor:
     """(L, C, 9C) tap-major int8 weights (tap k = 3*(dy+1) + dx+1) ->
     (L, 3, C, 3C): dx-major groups, dy-minor column blocks in each group."""
@@ -61,26 +93,41 @@ def dx3_weights(w_int8: torch.Tensor) -> torch.Tensor:
     return wt.permute(0, 3, 1, 2, 4).reshape(L, 3, C, 3 * C).contiguous()
 
 
+# the int8 kernels that take the (L, C, 9C) weights relaid out, and how
+INT8_KERNELS = {
+    "int8_dx3": (trunk_int8_dx3, dx3_weights),
+    "int8_m9": (trunk_int8_m9, m9_weights),
+    "int8_patch": (trunk_int8_patch, tap_major),
+    "int8_flat": (trunk_int8_flat, tap_major),
+}
+
+
 class FusedInference:
     """Eval-mode ``(B, S, S, 3) -> (log_probs (B, A), value (B, 1))`` with a
     trunk kernel. The weights are folded (and for the int8 variants
-    quantized, for ``int8_dx3`` also relaid out) once, here, from
+    quantized and relaid out for the variant's kernel) once, here, from
     ``model``'s current parameters, on ``model``'s device: build a new
     instance after the parameters change.
 
-    - ``int8_dx3``: the activation scale is taken per block of 64 games
-      (halved until it divides the batch), the JAX package's default;
-    - ``int8`` and ``int8_bf16``: the same quantized trunk, per block of 16
-      games, as the JAX package's defaults for these variants, in the
-      tap-major (L, C, 9C) layout; ``int8_bf16`` rounds each tap's product
-      to bf16;
-    - ``int8_xla``: the same quantized trunk with one scale per batch;
-    - ``matmul9``: bf16 folded weights (L, 3, 3, C, C) and f32 biases
-      (L, C); the JAX kernel's block of 32 games has no numeric effect, as
-      there is no per-block scale.
+    ``block_games`` (0: the variant's entry of :data:`DEFAULT_BLOCK_GAMES`,
+    as in the JAX package) is halved until it divides the batch. For the
+    int8 kernel variants it is part of the output: the activation scale is
+    taken per block of that many games. ``int8_xla`` takes one scale per
+    batch, and ``matmul9`` and ``wide`` have no per-block scale, so for them
+    it has no numeric effect.
+
+    - ``matmul9``: bf16 folded weights (L, 3, 3, C, C), f32 biases (L, C);
+    - ``wide``: the same weights as (L, C, 9C); each tap's product is
+      rounded to bf16 before the shifted f32 sum;
+    - ``int8``, ``int8_bf16``: the quantized trunk in the tap-major
+      (L, C, 9C) layout; ``int8_bf16`` rounds each tap's product to bf16;
+    - ``int8_m9`` (L, 9, C, C), ``int8_patch`` and ``int8_flat`` (L, 9C, C),
+      ``int8_dx3`` (L, 3, C, 3C): the same quantized function, each in its
+      kernel's layout.
     """
 
-    def __init__(self, model: OthelloResNet, variant: str = "int8_dx3"):
+    def __init__(self, model: OthelloResNet, variant: str = "int8_dx3",
+                 block_games: int = 0):
         if variant not in PORTED_VARIANTS:
             raise ValueError(
                 f"variant {variant!r} is not ported: ROADMAP.md lists it as "
@@ -89,6 +136,7 @@ class FusedInference:
         from .quantized import quantize_trunk
 
         self.variant = variant
+        self.block_games = block_games or DEFAULT_BLOCK_GAMES[variant]
         self.board_size = model.board_size
         bf16 = torch.bfloat16
         with torch.no_grad():
@@ -97,12 +145,13 @@ class FusedInference:
             self.stem_g, self.stem_b = _bn_affine(stem.bn)
             if variant.startswith("int8"):
                 self.qt = quantize_trunk(model)
-                self.trunk_w = (dx3_weights(self.qt.w_int8) if variant == "int8_dx3"
-                                else self.qt.w_int8)
+                self.trunk_w = (INT8_KERNELS[variant][1](self.qt.w_int8)
+                                if variant in INT8_KERNELS else self.qt.w_int8)
                 self.trunk_scale = self.qt.w_scale.contiguous()
                 self.trunk_bias = self.qt.bias.contiguous()
             else:
-                w, b = fold_block_params(model)
+                fold = fold_block_params_wide if variant == "wide" else fold_block_params
+                w, b = fold(model)
                 self.trunk_w, self.trunk_bias = w.contiguous(), b.contiguous()
             ph, vh = model.policy_head, model.value_head
             self.p_conv = ph.conv.weight[:, :, 0, 0].t().to(bf16)  # (C, 2)
@@ -125,17 +174,18 @@ class FusedInference:
         return h.to(torch.bfloat16).contiguous()
 
     def trunk(self, h: torch.Tensor) -> torch.Tensor:
-        if self.variant == "matmul9":
+        v = self.variant
+        if v == "matmul9":
             return trunk_matmul9(h, self.trunk_w, self.trunk_bias)
-        if self.variant == "int8_xla":
+        if v == "wide":
+            return trunk_wide(h, self.trunk_w, self.trunk_bias)
+        if v == "int8_xla":
             from .quantized import plain_int8_trunk
             return plain_int8_trunk(h.to(torch.float32), self.qt).to(torch.bfloat16)
-        if self.variant == "int8_dx3":
-            return trunk_int8_dx3(h, self.trunk_w, self.trunk_scale,
-                                  self.trunk_bias, DEFAULT_BLOCK_GAMES)
-        return out_shift.trunk_int8(h, self.trunk_w, self.trunk_scale, self.trunk_bias,
-                                    out_shift.DEFAULT_BLOCK_GAMES,
-                                    stage_bf16=self.variant == "int8_bf16")
+        args = (h, self.trunk_w, self.trunk_scale, self.trunk_bias, self.block_games)
+        if v in INT8_KERNELS:
+            return INT8_KERNELS[v][0](*args)
+        return trunk_int8(*args, stage_bf16=v == "int8_bf16")
 
     @torch.no_grad()
     def heads(self, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -4,8 +4,10 @@ CUDA card. Imports no JAX, so it runs where only torch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
 Without a card every test skips. Tolerances:
-- ``int8_dx3`` and ``trunk_int8`` (both ``stage_bf16`` settings):
-  bit-exact (the plain versions repeat the kernels' arithmetic);
+- ``int8_dx3``, ``trunk_int8`` (both ``stage_bf16`` settings),
+  ``int8_m9``, ``int8_patch`` and ``int8_flat``: bit-exact (the plain
+  versions repeat the kernels' arithmetic, and int32 sums are exact in any
+  order);
 - ``random_step``: boards and ``live`` bit-exact against
   ``random_step_plain`` fed the same random words (integer work);
 - ``matmul9``: the whole trunk equal bit for bit to its 20 convs launched
@@ -17,7 +19,13 @@ Without a card every test skips. Tolerances:
   1e-5. Through the 20 convs of a 10x128 tower such differences grow, as
   they do between any two summation orders, so the whole forward is held
   to the JAX package's ``matmul9`` bar (probs atol 0.03, value atol 0.05)
-  with the trainer's initial weights.
+  with the trainer's initial weights;
+- ``wide``: the whole trunk equal bit for bit to its 20 convs launched one
+  by one; each conv against the plain conv on the same input within
+  PyTorch's bf16 default plus ``sum_error_bound`` plus one bf16 ulp of each
+  tap's product (``trunk_wide.conv_bound``): the tensor cores sum each
+  tap's f32 dot in their own order, and an ulp of f32 there can move the
+  product's bf16 rounding by one ulp.
 """
 
 import numpy as np
@@ -33,12 +41,31 @@ from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dx3 import
     trunk_int8_dx3,
     trunk_int8_dx3_plain,
 )
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_flat import (
+    trunk_int8_flat,
+    trunk_int8_flat_plain,
+)
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_m9 import (
+    trunk_int8_m9,
+    trunk_int8_m9_plain,
+)
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_patch import (
+    trunk_int8_patch,
+    trunk_int8_patch_plain,
+)
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_matmul9 import (
     conv_matmul9,
     conv_plain,
     sum_error_bound,
     trunk_matmul9,
     trunk_matmul9_plain,
+)
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_wide import (
+    conv_bound,
+    conv_wide,
+    conv_wide_plain,
+    trunk_wide,
+    trunk_wide_plain,
 )
 from othello_reinforcement_learning_test_tpu_torch.models.convert import (
     from_jax_variables,
@@ -226,3 +253,85 @@ def test_play_random_games_kernel_matches_cpu():
         packed.cpu(), None, words=lambda ply: drawn[ply].cpu())
     assert torch.equal(final.cpu().view(torch.int32), final_c.view(torch.int32))
     assert (steps, plies) == (steps_c, plies_c)
+
+
+INT8_KERNELS = {"int8_m9": (trunk_int8_m9, trunk_int8_m9_plain),
+                "int8_patch": (trunk_int8_patch, trunk_int8_patch_plain),
+                "int8_flat": (trunk_int8_flat, trunk_int8_flat_plain)}
+
+
+@pytest.fixture(scope="module")
+def int8_model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    m = OthelloResNet(10, 128)
+    m.load_state_dict(from_jax_variables(init_numpy_variables(10, 128, seed=2)))
+    return m.cuda().eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(INT8_KERNELS))
+@pytest.mark.parametrize("batch", [1024, 24, 3, 1])
+def test_int8_variant_kernels_match_plain(int8_model, variant, batch):
+    fused = FusedInference(int8_model, variant=variant)
+    kernel, plain = INT8_KERNELS[variant]
+    rng = np.random.default_rng(batch)
+    h = np.abs(rng.standard_normal((batch, 8, 8, 128))) * rng.random((batch, 1, 1, 1)) * 2
+    x = torch.from_numpy(h.astype(np.float32)).to(torch.bfloat16).cuda()
+    args = (fused.trunk_w, fused.trunk_scale, fused.trunk_bias)
+    before = kernel.launches
+    out = kernel(x, *args)
+    assert kernel.launches == before + 20
+    assert torch.equal(out, plain(x, *args))
+    xb = torch.from_numpy(rng.integers(0, 2, (batch, 8, 8, 3)).astype(np.float32)).cuda()
+    lp, v = fused(xb)
+    lp_p, v_p = fused.heads(plain(fused.stem(xb), *args))
+    assert torch.equal(lp, lp_p) and torch.equal(v, v_p)
+
+
+@pytest.fixture(scope="module")
+def fused_wide():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    m = OthelloResNet(10, 128)
+    m.load_state_dict(from_jax_variables(init_train_variables(10, 128, seed=0)))
+    return FusedInference(m.cuda(), variant="wide")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1024, 24, 3])
+def test_wide_convs_match_plain(fused_wide, batch):
+    x = torch.from_numpy(np.random.default_rng(batch).integers(0, 2, (batch, 8, 8, 3))
+                         .astype(np.float32)).cuda()
+    h = fused_wide.stem(x)
+    w, b = fused_wide.trunk_w, fused_wide.trunk_bias
+    before = trunk_wide.launches
+    out = trunk_wide(h, w, b)
+    torch.cuda.synchronize()
+    assert trunk_wide.launches == before + 20
+    assert out.shape == h.shape and bool(torch.isfinite(out.float()).all())
+    chain = h
+    for i in range(0, 20, 2):
+        y = conv_wide(chain, w[i], b[i])
+        chain = conv_wide(y, w[i + 1], b[i + 1], resid=chain)
+    assert torch.equal(out, chain)
+    for i in range(10):  # every conv on the plain chain's own inputs
+        y = conv_wide_plain(h, w[2 * i], b[2 * i])
+        got = conv_wide(h, w[2 * i], b[2 * i])
+        assert bool(((got.float() - y.float()).abs() <= conv_bound(h, w[2 * i], b[2 * i], y)).all())
+        h_next = conv_wide_plain(y, w[2 * i + 1], b[2 * i + 1], h)
+        got = conv_wide(y, w[2 * i + 1], b[2 * i + 1], resid=h)
+        bound = conv_bound(y, w[2 * i + 1], b[2 * i + 1], h_next)
+        assert bool(((got.float() - h_next.float()).abs() <= bound).all())
+        h = h_next
+
+
+@pytest.mark.cuda
+def test_wide_fused_inference_matches_plain_trunk(fused_wide):
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 2, (256, 8, 8, 3))
+                         .astype(np.float32)).cuda()
+    lp, v = fused_wide(x)
+    lp_p, v_p = fused_wide.heads(trunk_wide_plain(fused_wide.stem(x), fused_wide.trunk_w,
+                                                  fused_wide.trunk_bias))
+    torch.testing.assert_close(lp.exp(), lp_p.exp(), rtol=0, atol=0.03)
+    torch.testing.assert_close(v, v_p, rtol=0, atol=0.05)

@@ -146,8 +146,7 @@ def test_block_size_rule(batch, block_games, expected):
     assert block_size(batch, block_games) == expected
 
 
-@pytest.mark.parametrize("variant", ["wide", "int8_m9", "int8_patch", "int8_flat",
-                                     "int8_dxcat"])
+@pytest.mark.parametrize("variant", ["int8_dxcat"])
 def test_unported_variants_raise(variant):
     m = port_model(init_numpy_variables(1, 16, seed=0), 1, 16)
     with pytest.raises(ValueError, match="ROADMAP.md"):

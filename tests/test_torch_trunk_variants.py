@@ -1,0 +1,252 @@
+"""The ``wide``, ``int8_m9``, ``int8_patch`` and ``int8_flat`` trunks: the
+plain PyTorch versions (as the wrappers run them on the CPU) against the JAX
+package's Pallas kernels in interpret mode, the weight layouts, the block
+sizes and ``FusedInference``. ``tests/test_torch_cuda.py`` holds the CUDA
+kernels against the plain versions on a card.
+
+Tolerances, each with its reason:
+- plain trunk vs ``fused_trunk_wide`` / ``fused_trunk_int8(kernel="m9" /
+  "patch" / "flat", block_games=32)`` in interpret mode at 2 blocks x 32
+  channels: at most 1 bf16 ulp in under 1e-3 of the outputs, the bar of
+  ``tests/test_torch_trunk_int8.py``. On the int8 path XLA's CPU compiler
+  fuses the interpreted kernel's dequantisation ``acc * scale + bias`` into
+  one multiply-add where the port rounds product and sum, and an ulp of f32
+  there can flip an int8 code of the next layer
+  (``test_fused_dequant_witness`` there); on the ``wide`` path both sum the
+  same bf16 products in the same f32 order;
+- weight layouts: equal;
+- ``FusedInference`` vs the JAX ``FusedInference(variant, interpret=True)``:
+  probabilities atol 0.02 and values atol 0.04 for the int8 variants (the
+  repo's bar between int8 trunks), 0.03 and 0.05 for ``wide`` (the JAX
+  package's bar for its bf16 trunks).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from othello_reinforcement_learning_test_tpu.models import quantized as jq
+from othello_reinforcement_learning_test_tpu.models.pallas_resnet import (
+    FusedInference as JaxFused,
+    fold_block_params_wide as j_fold_wide,
+    fused_trunk_int8,
+    fused_trunk_wide,
+)
+from othello_reinforcement_learning_test_tpu.models.resnet import OthelloResNet as JaxResNet
+from othello_reinforcement_learning_test_tpu_torch.kernels import build
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_flat import (
+    trunk_int8_flat,
+    trunk_int8_flat_plain,
+)
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_m9 import (
+    trunk_int8_m9,
+    trunk_int8_m9_plain,
+)
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_patch import (
+    trunk_int8_patch,
+    trunk_int8_patch_plain,
+)
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_matmul9 import (
+    conv3x3,
+    sum_error_bound,
+)
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_wide import (
+    conv_wide,
+    conv_wide_plain,
+    shifted_sum,
+    tap_ulp_bound,
+    trunk_wide,
+    trunk_wide_plain,
+    wide_taps,
+)
+from othello_reinforcement_learning_test_tpu_torch.models.convert import (
+    from_jax_variables,
+    init_numpy_variables,
+)
+from othello_reinforcement_learning_test_tpu_torch.models.fused_resnet import (
+    DEFAULT_BLOCK_GAMES,
+    INT8_KERNELS,
+    FusedInference,
+    fold_block_params,
+    fold_block_params_wide,
+)
+from othello_reinforcement_learning_test_tpu_torch.models.resnet import OthelloResNet
+
+NUM_BLOCKS, CHANNELS = 2, 32
+INT8_VARIANTS = {"int8_m9": ("m9", trunk_int8_m9, trunk_int8_m9_plain),
+                 "int8_patch": ("patch", trunk_int8_patch, trunk_int8_patch_plain),
+                 "int8_flat": ("flat", trunk_int8_flat, trunk_int8_flat_plain)}
+
+
+def bf16_ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Distance in bf16 ulps of two non-negative bf16-valued f32 arrays."""
+    return np.abs((a.view(np.int32) >> 16) - (b.view(np.int32) >> 16))
+
+
+def port_model(variables, num_blocks=NUM_BLOCKS, num_filters=CHANNELS):
+    m = OthelloResNet(num_blocks, num_filters)
+    m.load_state_dict(from_jax_variables(variables), strict=True)
+    return m.eval()
+
+
+def trunk_input(batch, seed=3):
+    """A bf16 post-ReLU trunk input with a scale of its own per game, from a
+    numpy seed."""
+    rng = np.random.default_rng(batch + seed)
+    h = np.abs(rng.standard_normal((batch, 8, 8, CHANNELS))) * rng.random((batch, 1, 1, 1)) * 2
+    return jnp.asarray(h, jnp.float32).astype(jnp.bfloat16)
+
+
+def to_torch_bf16(hb):
+    return torch.from_numpy(np.array(hb.astype(jnp.float32))).to(torch.bfloat16)
+
+
+def kernel_args(variant, variables, hb):
+    """(the Pallas reference's output, the port wrapper's arguments) for the
+    plain version of ``variant``, from the same variables and input."""
+    x = to_torch_bf16(hb)
+    if variant == "wide":
+        jw, jb = j_fold_wide(variables, NUM_BLOCKS)
+        ref = fused_trunk_wide(hb, jw, jb, NUM_BLOCKS, block_games=16, interpret=True)
+        w, b = fold_block_params_wide(port_model(variables))
+        return ref, (x, w, b)
+    jqt = jq.quantize_trunk(variables, NUM_BLOCKS)
+    ref = fused_trunk_int8(hb, jqt.w_int8, jqt.w_scale, jqt.bias, NUM_BLOCKS, block_games=32,
+                           interpret=True, kernel=INT8_VARIANTS[variant][0])
+    fused = FusedInference(port_model(variables), variant=variant)
+    return ref, (x, fused.trunk_w, fused.trunk_scale, fused.trunk_bias)
+
+
+@pytest.mark.parametrize("variant", ["wide", *INT8_VARIANTS])
+@pytest.mark.parametrize("batch", [64, 24])  # bg 32 (wide: 16), and bg 8
+def test_plain_trunk_matches_pallas_interpret(variant, batch):
+    variables = init_numpy_variables(NUM_BLOCKS, CHANNELS, seed=3)
+    ref, args = kernel_args(variant, variables, trunk_input(batch))
+    plain = trunk_wide_plain if variant == "wide" else INT8_VARIANTS[variant][2]
+    out = plain(*args).float().numpy()
+    ref = np.array(ref.astype(jnp.float32))
+    assert out.shape == ref.shape and np.all(np.isfinite(out))
+    assert bf16_ulps(out, ref).max() <= 1
+    assert (out != ref).mean() < 1e-3
+
+
+def test_fold_block_params_wide_matches_jax():
+    variables = init_numpy_variables(NUM_BLOCKS, CHANNELS, seed=5)
+    jw, jb = j_fold_wide(variables, NUM_BLOCKS)
+    w, b = fold_block_params_wide(port_model(variables))
+    assert w.dtype == torch.bfloat16 and w.shape == (2 * NUM_BLOCKS, CHANNELS, 9 * CHANNELS)
+    np.testing.assert_array_equal(w.float().numpy(), np.array(jw.astype(jnp.float32)))
+    # XLA may rewrite x / sqrt(y) as x * rsqrt(y): the biases agree to 1e-6
+    np.testing.assert_allclose(b.numpy(), np.array(jb), atol=1e-6, rtol=0)
+    # tap k = 3 * (dy + 1) + (dx + 1) of the HWIO fold sits in columns k*C..
+    w9, _ = fold_block_params(port_model(variables))
+    C = CHANNELS
+    for k in range(9):
+        assert torch.equal(w[:, :, k * C:(k + 1) * C], w9[:, k // 3, k % 3])
+
+
+@pytest.mark.parametrize("variant", list(INT8_VARIANTS))
+def test_int8_relayouts_match_jax(variant):
+    """Each kernel's weights as ``fused_trunk_int8`` relays them out
+    (``pallas_resnet.py:522-525`` for m9, ``:548-553`` for patch and flat)."""
+    variables = init_numpy_variables(NUM_BLOCKS, CHANNELS, seed=7)
+    jqt = jq.quantize_trunk(variables, NUM_BLOCKS)
+    L, C = 2 * NUM_BLOCKS, CHANNELS
+    if variant == "int8_m9":
+        want = jqt.w_int8.reshape(L, C, 9, C).transpose(0, 2, 1, 3)
+    else:
+        want = jqt.w_int8.reshape(L, C, 9, C).transpose(0, 2, 1, 3).reshape(L, 9 * C, C)
+    fused = FusedInference(port_model(variables), variant=variant)
+    assert fused.trunk_w.dtype == torch.int8 and fused.trunk_w.is_contiguous()
+    np.testing.assert_array_equal(fused.trunk_w.numpy(), np.array(want))
+    assert INT8_KERNELS[variant][0] is INT8_VARIANTS[variant][1]
+
+
+@pytest.mark.parametrize("variant,probs,value", [
+    ("wide", 0.03, 0.05), ("int8_m9", 0.02, 0.04), ("int8_patch", 0.02, 0.04),
+    ("int8_flat", 0.02, 0.04)])
+def test_fused_inference_matches_jax(variant, probs, value):
+    num_blocks, batch = 2, 16
+    variables = init_numpy_variables(num_blocks, 128, seed=13)
+    jm = JaxResNet(num_blocks=num_blocks, num_filters=128)
+    x = np.random.default_rng(batch).integers(0, 2, (batch, 8, 8, 3)).astype(np.float32)
+    lp_j, v_j = JaxFused(jm, interpret=True, variant=variant)(variables, jnp.asarray(x))
+    fused = FusedInference(port_model(variables, num_blocks, 128), variant=variant)
+    lp_t, v_t = fused(torch.from_numpy(x))
+    assert lp_t.shape == (batch, 65) and v_t.shape == (batch, 1)
+    np.testing.assert_allclose(np.exp(lp_t.numpy()), np.exp(np.asarray(lp_j)), atol=probs,
+                               rtol=0)
+    np.testing.assert_allclose(v_t.numpy(), np.asarray(v_j), atol=value, rtol=0)
+
+
+def test_default_block_sizes_match_jax():
+    jm = JaxResNet(num_blocks=1, num_filters=16)
+    m = port_model(init_numpy_variables(1, 16, seed=0), 1, 16)
+    for variant in JaxFused.VARIANTS:
+        want = JaxFused(jm, variant=variant).block_games
+        assert DEFAULT_BLOCK_GAMES[variant] == want, variant
+        if variant != "int8_dxcat":
+            assert FusedInference(m, variant=variant).block_games == want, variant
+            assert FusedInference(m, variant=variant, block_games=4).block_games == 4
+
+
+@pytest.mark.parametrize("variant", list(INT8_VARIANTS))
+def test_block_games_moves_an_int8_output(variant):
+    """The activation scale is per block: 32 games in one block of 32 and in
+    four blocks of 8 give different outputs, and a block of 8 depends only
+    on its own games."""
+    m = port_model(init_numpy_variables(NUM_BLOCKS, CHANNELS, seed=3))
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 2, (32, 8, 8, 3))
+                         .astype(np.float32))
+    x[:8] *= 3  # the first block's inputs, and so its scale, are larger
+    lp32, _ = FusedInference(m, variant=variant)(x)
+    lp8, _ = FusedInference(m, variant=variant, block_games=8)(x)
+    assert not torch.equal(lp32, lp8)
+    alone, _ = FusedInference(m, variant=variant, block_games=8)(x[8:16])
+    assert torch.equal(lp8[8:16], alone)
+
+
+@pytest.mark.parametrize("variant", ["wide", *INT8_VARIANTS])
+def test_wrapper_on_cpu_is_the_plain_version(variant):
+    variables = init_numpy_variables(NUM_BLOCKS, CHANNELS, seed=3)
+    _, args = kernel_args(variant, variables, trunk_input(24))
+    wrapper, plain = ((trunk_wide, trunk_wide_plain) if variant == "wide"
+                      else INT8_VARIANTS[variant][1:])
+    before = wrapper.launches
+    assert torch.equal(wrapper(*args), plain(*args))
+    assert wrapper.launches == before
+    x, w, *rest = args
+    with pytest.raises(ValueError):  # weights of another layout
+        wrapper(x, w.transpose(1, 2).contiguous(), *rest)
+    with pytest.raises(ValueError):
+        wrapper(x.float(), w, *rest)
+    if variant == "wide":
+        w, b = args[1:]
+        h = args[0]
+        assert torch.equal(conv_wide(h, w[0], b[0]), conv_wide_plain(h, w[0], b[0]))
+        assert torch.equal(conv_wide(h, w[1], b[1], resid=h), conv_wide_plain(h, w[1], b[1], h))
+        assert wrapper.launches == before
+
+
+def test_wide_rounds_each_tap_to_bf16():
+    """The wide trunk is not matmul9's: each tap's product is rounded to
+    bf16 before the f32 sum, and one bf16 ulp of each, summed, bounds what
+    that rounding may move."""
+    variables = init_numpy_variables(NUM_BLOCKS, CHANNELS, seed=3)
+    m = port_model(variables)
+    w, b = fold_block_params_wide(m)
+    h = to_torch_bf16(trunk_input(8))
+    w9, _ = fold_block_params(m)
+    unrounded = conv3x3(h, w9[0], b[0])
+    rounded = shifted_sum(wide_taps(h, w[0]), b[0])
+    diff = (unrounded - rounded).abs()
+    assert float(diff.max()) > 0
+    # each rounding moves a product by at most half an ulp; the f32
+    # summation noise of the two sums comes on top
+    assert bool((diff <= tap_ulp_bound(h, w[0]) / 2 + sum_error_bound(h, w9[0], b[0])).all())
+
+
+def test_every_kernel_source_is_registered():
+    """``chip_smoke.py`` builds ``build.SOURCES``: every ``csrc/*.cu``."""
+    assert sorted(build.SOURCES) == sorted(p.stem for p in build.CSRC_DIR.glob("*.cu"))
