@@ -7,11 +7,12 @@ Imports torch, numpy and the port package only (no JAX). Phases, one line
 each as they finish:
 
 1. device        card name and ``nvidia-smi`` name / power limit;
-2. build         the eight kernels (``trunk_int8_dx3``, ``trunk_matmul9``,
+2. build         the nine kernels (``trunk_int8_dx3``, ``trunk_matmul9``,
                  ``trunk_int8``, ``random_step``, ``trunk_wide``,
                  ``trunk_int8_m9``, ``trunk_int8_patch``,
-                 ``trunk_int8_flat``) built from ``csrc/`` with nvcc, in
-                 parallel; ptxas registers and shared memory;
+                 ``trunk_int8_flat``, ``trunk_int8_dxcat``) built from
+                 ``csrc/`` with nvcc, in parallel; ptxas registers and
+                 shared memory;
 3. kernel_check  the ``int8_dx3`` trunk kernel against its plain PyTorch
                  version on the card, at B=1024 (bg 64), B=24 (bg 8) and
                  B=3 (bg 1), on
@@ -48,11 +49,11 @@ each as they finish:
                  tap's f32 dot can move its bf16 rounding by an ulp), and
                  FusedInference(wide) at probs 0.03 / value 0.05 on the
                  flax-init weights. Then ``trunk_int8_m9``,
-                 ``trunk_int8_patch`` and ``trunk_int8_flat`` against their
-                 plain version (the plain ``int8_dx3`` trunk on tap-major
-                 weights) at B=1024 (bg 32), 24 (bg 8) and 3 (bg 1):
-                 bit-exact, and FusedInference with each against the plain
-                 trunk: equal. Then ``random_step`` against ``random_step_plain``
+                 ``trunk_int8_patch``, ``trunk_int8_flat`` and
+                 ``trunk_int8_dxcat`` against their plain version (the plain
+                 ``int8_dx3`` trunk on tap-major weights) at B=1024 (bg 32;
+                 ``dxcat`` bg 64), 24 (bg 8) and 3 (bg 1): bit-exact, and
+                 FusedInference with each against the plain trunk: equal. Then ``random_step`` against ``random_step_plain``
                  on the card, fed the same words, every ply of 4,096 games
                  to their end for sizes 8, 6 and 4 under both rule sets,
                  then of the bench's 4,194,304 games at 8x8: bit-exact
@@ -67,6 +68,12 @@ each as they finish:
                  ulp), 128 games, 8 simulations, no root noise, temperature
                  threshold 0: the stub's outputs and every trajectory field
                  (boards, pi targets, outcomes, masks) bit-identical;
+   arena_check   ``Arena.play_matches`` on the card and on the CPU, 64
+                 games each at ``opening_random_plies=0``: Greedy vs Greedy,
+                 and ``MCTSPlayer`` on the stub network (8 simulations) vs
+                 Greedy: every game's winner, scores and move count
+                 identical; then ``NativeMinimaxPlayer`` (depth 2, the
+                 port's g++ build of ``csrc/othello_native.cpp``) vs Greedy;
 6. selfplay      ``play_games`` at 10x128 with ``int8_dx3``: 1024 games,
                  25 simulations, c_puct 1.0, temperature threshold 15, root
                  noise on; trunk launches must be 20 per network forward and
@@ -85,6 +92,14 @@ each as they finish:
                  ``matmul9`` and a checkpoint: launches = 20 x network
                  forwards, buffer fill = valid plies, 24 finite losses,
                  parameters moved, the checkpoint reloads exactly;
+   gating        one gated ``AlphaZeroTrainer`` iteration at 10x128 through
+                 ``int8_dxcat``, the ``configs/strong_8x8.yaml`` recipe cut
+                 to one batch of 64 games of 25 simulations, 4 SGD steps and
+                 gating and a checkpoint at iteration 1: ``trunk_int8_dxcat``
+                 launched 20 x (self-play + gate-match forwards), 40 gate
+                 games, the decision logged and written as its two scalars,
+                 best equal to the candidate if adopted and unchanged if
+                 not, the checkpoint holding best and reloading it exactly;
 9. bench         the port's ``bench.py --mode all --repeats 1`` in process,
                  its JSON line printed (random self-play through
                  ``random_step``, one launch a ply; self-play through
@@ -92,12 +107,12 @@ each as they finish:
                  --net-variant int8``: ``trunk_int8`` launched 20 times a
                  network forward;
     benchmark_model  the port's ``benchmark_model --fused`` in process over
-                 all nine ported variants (default batches 1-4096, chain 16,
+                 all ten variants (default batches 1-4096, chain 16,
                  2 repeats): each table printed, every row at B >= 256 a
                  number, each kernel launched 20 times a fused forward;
 10. profile      one ply's search at B=1024 under torch.profiler: wall
                  time, device-busy time and idle share, time by kernel;
-11. timing       the seven trunk kernels and their plain versions at B=1024
+11. timing       the eight trunk kernels and their plain versions at B=1024
                  and, for ``matmul9`` and ``wide``, the same folded tower as
                  20 cuDNN convolutions; ``random_step`` and its plain version for one
                  ply of 4,194,304 games (CUDA events; their outputs must be
@@ -132,6 +147,10 @@ from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dx3 import
     trunk_int8_dx3,
     trunk_int8_dx3_plain,
 )
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dxcat import (
+    trunk_int8_dxcat,
+    trunk_int8_dxcat_plain,
+)
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_flat import (
     trunk_int8_flat,
     trunk_int8_flat_plain,
@@ -158,6 +177,12 @@ from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_wide import (
     hwio,
     trunk_wide,
     trunk_wide_plain,
+)
+from othello_reinforcement_learning_test_tpu_torch.evaluation import (
+    Arena,
+    GreedyPlayer,
+    MCTSPlayer,
+    NativeMinimaxPlayer,
 )
 from othello_reinforcement_learning_test_tpu_torch.models.convert import (
     from_jax_variables,
@@ -194,17 +219,19 @@ TRUNK_SOURCE = "othello_reinforcement_learning_test_tpu_torch/csrc/trunk_int8_dx
 TRUNK_REPLACES = "othello_reinforcement_learning_test_tpu/models/pallas_resnet.py:318"
 PALLAS = "othello_reinforcement_learning_test_tpu/models/pallas_resnet.py"
 CSRC = "othello_reinforcement_learning_test_tpu_torch/csrc"
-# the int8 trunks of this slice: kernel, plain version, Pallas kernel's line
+# the int8 trunks that compute int8_dx3's function through other data
+# movements: kernel, plain version, Pallas kernel's line
 INT8_VARIANTS = {"int8_m9": (trunk_int8_m9, trunk_int8_m9_plain, 192),
                  "int8_patch": (trunk_int8_patch, trunk_int8_patch_plain, 230),
-                 "int8_flat": (trunk_int8_flat, trunk_int8_flat_plain, 264)}
+                 "int8_flat": (trunk_int8_flat, trunk_int8_flat_plain, 264),
+                 "int8_dxcat": (trunk_int8_dxcat, trunk_int8_dxcat_plain, 377)}
 # benchmark_model.py --fused over every variant the port has
 BENCH_VARIANTS = ("matmul9", "wide", "int8", "int8_bf16", "int8_m9", "int8_patch", "int8_flat",
-                  "int8_dx3", "int8_xla")
+                  "int8_dx3", "int8_dxcat", "int8_xla")
 VARIANT_KERNEL = {"matmul9": trunk_matmul9, "wide": trunk_wide, "int8": trunk_int8,
                   "int8_bf16": trunk_int8, "int8_m9": trunk_int8_m9,
                   "int8_patch": trunk_int8_patch, "int8_flat": trunk_int8_flat,
-                  "int8_dx3": trunk_int8_dx3}
+                  "int8_dx3": trunk_int8_dx3, "int8_dxcat": trunk_int8_dxcat}
 M9_SOURCE = "othello_reinforcement_learning_test_tpu_torch/csrc/trunk_matmul9.cu"
 M9_REPLACES = "othello_reinforcement_learning_test_tpu/models/pallas_resnet.py:61"
 INT8_SOURCE = "othello_reinforcement_learning_test_tpu_torch/csrc/trunk_int8.cu"
@@ -230,6 +257,26 @@ FLAGSHIP = {
                "self_play_net_variant": "matmul9"},
 }
 SCRATCH = build.BUILD_DIR / "chip_smoke_train"  # git-ignored
+ARENA_GAMES = 64
+# configs/strong_8x8.yaml, with self-play and gating through int8_dxcat, cut
+# so that one iteration gates and checkpoints in about a minute: 64 games in
+# one batch (200 in batches of 16), 25 simulations (100), 4 SGD steps (15),
+# gating and a checkpoint every iteration (every 25)
+STRONG = {
+    "game": {"size": 8, "rules": "reference"},
+    "model": {"num_blocks": 10, "num_filters": 128, "board_size": 8},
+    "training": {"batch_size": 256, "lr": 0.001, "lr_step_size": 200, "lr_gamma": 0.5,
+                 "weight_decay": 0.0001, "momentum": 0.9, "num_iterations": 500,
+                 "self_play_episodes_per_iter": 64, "train_epochs_per_iter": 4,
+                 "checkpoint_interval": 1, "replay_buffer_size": 200000,
+                 "gating": {"enabled": True, "games": 40, "win_threshold": 0.55, "interval": 1,
+                            "opening_random_plies": 4}},
+    "mcts": {"num_simulations": 25, "num_simulations_eval": 200, "c_puct": 1.5,
+             "dirichlet_alpha": 0.3, "dirichlet_epsilon": 0.25},
+    "self_play": {"temperature_threshold": 20, "num_parallel_games": 64},
+    "system": {"device": "auto", "seed": 42, "use_mixed_precision": True,
+               "self_play_net_variant": "int8_dxcat"},
+}
 
 
 def phase(phase_name: str, **fields) -> None:
@@ -431,8 +478,9 @@ def check_wide(fused_w, feats, weights: str, check_forward: bool) -> float:
 
 
 def check_int8_variants(model, feats) -> dict:
-    """The int8_m9, int8_patch and int8_flat kernels against their plain
-    versions at B=1024, 24 and 3 (bg 32, 8 and 1), bit for bit, and
+    """The int8_m9, int8_patch, int8_flat and int8_dxcat kernels against
+    their plain versions at B=1024, 24 and 3 (bg 32, for dxcat 64; 8; 1),
+    bit for bit, and
     FusedInference with each kernel against the plain trunk. Returns
     {variant: (largest difference, FusedInference)}."""
     out = {}
@@ -731,6 +779,134 @@ def search_check(engine, feats: torch.Tensor, dev) -> None:
     check(not differing, f"self-play on the card == CPU (differing: {differing})")
 
 
+def arena_check(engine, dev) -> None:
+    """Arena matches on the card and on the CPU with deterministic players:
+    every game identical (see the module docstring); then the native
+    alpha-beta player against Greedy on the card."""
+    greedy = GreedyPlayer(engine)
+    weights = stub_weights(engine.size)
+    pairs = {"greedy_vs_greedy": lambda d: (greedy, greedy),
+             "mcts_stub_vs_greedy": lambda d: (
+                 MCTSPlayer(engine, stub_net(weights, d), num_simulations=SEARCH_SIMS), greedy)}
+    for what, players in pairs.items():
+        games, seconds = [], []
+        for d in (dev, torch.device("cpu")):
+            t0 = time.perf_counter()
+            s = Arena(engine, device=d).play_matches(*players(d), ARENA_GAMES, seed=SEED)
+            seconds.append(round(time.perf_counter() - t0, 3))
+            games.append([(r.winner, r.player1_score, r.player2_score, r.num_moves)
+                          for r in s.results])
+        differing = sum(a != b for a, b in zip(*games))
+        phase("arena_check", match=what, games=ARENA_GAMES, simulations=SEARCH_SIMS,
+              p1_wins=sum(g[0] == 1 for g in games[0]), p1_losses=sum(g[0] == -1 for g in games[0]),
+              avg_moves=float(np.mean([g[3] for g in games[0]])), games_differing=differing,
+              seconds_card_cpu=seconds)
+        check(len(games[0]) == ARENA_GAMES and differing == 0,
+              f"{what}: every game on the card == CPU ({differing} differ)")
+        check(all(g[1] + g[2] <= 64 and g[3] > 0 for g in games[0]), f"{what}: sane games")
+    t0 = time.perf_counter()
+    minimax = NativeMinimaxPlayer(engine, depth=2)
+    build_s = time.perf_counter() - t0
+    s = Arena(engine, device=dev).play_matches(minimax, greedy, 8, seed=SEED,
+                                               opening_random_plies=4)
+    phase("arena_check", match=f"{minimax.name} vs Greedy", games=8, opening_random_plies=4,
+          wins=s.wins, losses=s.losses, draws=s.draws, avg_moves=s.avg_moves,
+          build_and_load_s=round(build_s, 3), seconds=round(s.duration, 3))
+    check(s.wins + s.losses + s.draws == 8 and s.avg_moves > 0, "minimax match played")
+
+
+def gating_phase() -> int:
+    """One gated iteration of the strong_8x8 recipe through int8_dxcat, and
+    a reload of its checkpoint (see the module docstring). Returns the
+    kernel's launches."""
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    cfg = json.loads(json.dumps(STRONG))
+    cfg["paths"] = {"checkpoint_dir": str(SCRATCH / "models"), "log_dir": str(SCRATCH / "logs")}
+    logs = []
+    tr = trainer_lib.AlphaZeroTrainer(cfg, log_cb=logs.append)
+    check(tr.device.type == "cuda" and tr.variant == "int8_dxcat" and tr.gating_enabled,
+          "gated trainer on the card, int8_dxcat")
+    forwards = {"self_play": 0, "gate_match": 0}
+    counting, matches = ["self_play"], []
+    make_net, gate_match, run_self_play = tr._net, tr._gate_match, tr.run_self_play
+
+    def counted_net(model):
+        net = make_net(model)
+
+        def f(x):
+            forwards[counting[0]] += 1
+            return net(x)
+        return f
+
+    def timed_self_play(n, **kw):
+        t0 = time.perf_counter()
+        out = run_self_play(n, **kw)
+        torch.cuda.synchronize()
+        matches.append(("self_play", time.perf_counter() - t0, None))
+        return out
+
+    def timed_gate_match(seed):
+        counting[0] = "gate_match"
+        t0 = time.perf_counter()
+        out = gate_match(seed)
+        torch.cuda.synchronize()
+        matches.append(("gate_match", time.perf_counter() - t0, out))
+        return out
+
+    tr._net, tr._gate_match, tr.run_self_play = counted_net, timed_gate_match, timed_self_play
+    best_before = {k: t.clone() for k, t in tr.best.items()}
+    torch.cuda.synchronize()
+    for kernel in set(VARIANT_KERNEL.values()):
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    scalars = tr._train_iteration(0, tr.episodes_per_iter, tr.num_iterations, [], [])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = trunk_int8_dxcat.launches
+    others = {k.__name__: k.launches for k in VARIANT_KERNEL.values() if k is not trunk_int8_dxcat}
+    sp_s = dict((m[0], m[1]) for m in matches)["self_play"]
+    _, gate_s, (win_rate, summary) = matches[-1]
+    n_fwd = forwards["self_play"] + forwards["gate_match"]
+    check(launches > 0 and launches == 2 * NUM_BLOCKS * n_fwd,
+          f"int8_dxcat launches {launches} == 20 x forwards {n_fwd}")
+    check(not any(others.values()), f"no other trunk kernel in the gated iteration ({others})")
+    check(summary.wins + summary.losses + summary.draws == 40 and len(summary.results) == 40,
+          "40 gate games")
+    accepted = win_rate >= tr.gating_threshold
+    check(any(m.startswith("gating @ iter 1:") and ("ADOPTED" in m) == accepted for m in logs),
+          "the gating decision is logged")
+    tr.close()  # flushes the metrics
+    with open(SCRATCH / "logs" / "metrics.jsonl") as f:
+        rows = {r["tag"]: r for r in map(json.loads, f) if r["tag"].startswith("Gating/")}
+    check(rows.get("Gating/win_rate", {}).get("value") == win_rate
+          and rows.get("Gating/accepted", {}).get("value") == float(accepted)
+          and rows["Gating/accepted"]["step"] == 1, "the decision written as its two scalars")
+    want = tr.model.state_dict() if accepted else best_before
+    check(all(torch.equal(tr.best[k], want[k]) for k in want),
+          "best == the candidate" if accepted else "best unchanged")
+    path = SCRATCH / "models" / "checkpoint_iter_000001.pt"
+    meta = json.loads(path.with_name(path.name + ".meta.json").read_text())
+    check(path.is_file() and meta["has_best"], "checkpoint written with best")
+    fresh = trainer_lib.AlphaZeroTrainer(cfg, log_cb=None)
+    fresh.load_checkpoint(str(path))
+    check(all(torch.equal(tr.best[k], fresh.best[k]) for k in tr.best)
+          and all(torch.equal(t, fresh.model.state_dict()[k])
+                  for k, t in tr.model.state_dict().items()),
+          "the checkpoint reloads best and the candidate exactly")
+    phase("gating", games=tr.episodes_per_iter, simulations=tr.num_simulations,
+          variant=tr.variant, gate_games=len(summary.results), gate_simulations=tr.gating_sims,
+          forwards=forwards, trunk_launches=launches, sgd_steps=tr.epochs_per_iter,
+          loss_mean=scalars["Loss/train"], wins=summary.wins, losses=summary.losses,
+          draws=summary.draws, win_rate=win_rate, adopted=accepted,
+          self_play_s=round(sp_s, 3), sgd_s=round(scalars["Time/train"], 3),
+          gate_match_s=round(gate_s, 3), checkpoint_s=round(tr.last_checkpoint_seconds, 3),
+          checkpoint_mb=round(path.stat().st_size / 2 ** 20, 1),
+          iteration_s=round(seconds, 3))
+    fresh.close()
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    return launches
+
+
 def bench_phase() -> tuple:
     """The port's bench in process: ``--mode all --repeats 1`` (random_step
     launched once a ply), then ``--mode mcts --net-variant int8``
@@ -930,6 +1106,7 @@ def main() -> int:
     check(bool(engine.is_terminal(boards_h).all()), "random games end")
     phase("engine_check", games=n_games, plies=n_plies, identical=True)
     search_check(engine, feats, dev)
+    arena_check(engine, dev)
 
     # main path: self-play through the kernel
     forwards = 0
@@ -975,6 +1152,7 @@ def main() -> int:
     # the training path: one f32 step card vs CPU, then one flagship iteration
     train_step_check(engine, feats.cpu(), rng)
     m9_launches = train_iteration(dev)
+    dxcat_launches = gating_phase()
     step_launches, int8_launches = bench_phase()
     variant_launches = benchmark_model_phase()
 
@@ -1055,7 +1233,8 @@ def main() -> int:
           "the wide trunk's weights")
     for variant, (k_ms, p_ms, f_ms) in variant_ms.items():
         phase("timing", kernel=INT8_VARIANTS[variant][0].__name__, batch=GAMES,
-              block_games=block_size(GAMES, 32), kernel_ms=k_ms, plain_ms=p_ms,
+              block_games=block_size(GAMES, variants[variant][1].block_games), kernel_ms=k_ms,
+              plain_ms=p_ms,
               bound_ms=bound_ms, bound_by=bound_by, fused_forward_ms=f_ms,
               launches_per_forward=layers, library_ms=None)
     phase("timing", kernel="random_step", games=RANDOM_GAMES, kernel_ms=step_ms,
@@ -1089,6 +1268,9 @@ def main() -> int:
         "max_abs_err": wide_max_abs_err, "ms": wide_ms, "plain_ms": wide_plain_ms,
         "bound_ms": m9_bound_ms, "bound_by": m9_bound_by, "library_ms": wide_cudnn_ms,
     }]
+    # each kernel's launches on its main path: benchmark_model's, and for
+    # int8_dxcat the gated training iteration's
+    variant_launches["trunk_int8_dxcat"] = dxcat_launches
     for variant, (kernel, _, line) in INT8_VARIANTS.items():
         k_ms, p_ms, _ = variant_ms[variant]
         kernels.append({

@@ -50,7 +50,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="trunk variants to measure with --fused: matmul9 (9 small "
                              "matmuls), wide (one (M,C)@(C,9C) matmul per conv), int8 "
                              "(int8 output shifts), int8_xla (plain int8), int8_m9, "
-                             "int8_patch, int8_flat, int8_dx3, int8_bf16")
+                             "int8_patch, int8_flat, int8_dx3, int8_dxcat, int8_bf16")
     parser.add_argument("--block-games", type=int, default=0,
                         help="games per activation-scale block (0 = per-variant default)")
     parser.add_argument("--chain", type=int, default=16,
@@ -79,8 +79,7 @@ def run(argv: Optional[List[str]] = None) -> Dict:
     args = parse_args(argv)
     for v in args.fused_variants if args.fused else ():
         if v not in PORTED_VARIANTS:
-            raise ValueError(f"fused variant {v!r} is not ported: ROADMAP.md lists it as not "
-                             f"yet ported; only {PORTED_VARIANTS} are")
+            raise ValueError(f"unknown fused variant {v!r}: one of {PORTED_VARIANTS}")
     dev = resolve_device(args.device)
     on_card = dev.type == "cuda"
     name = f"cuda:{dev.index or 0} ({torch.cuda.get_device_name(dev)})" if on_card else "cpu"

@@ -28,7 +28,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # every kernel source, csrc/<name>.cu, in the order chip_smoke.py reports them
 SOURCES = ("trunk_int8_dx3", "trunk_matmul9", "trunk_int8", "random_step", "trunk_wide",
-           "trunk_int8_m9", "trunk_int8_patch", "trunk_int8_flat")
+           "trunk_int8_m9", "trunk_int8_patch", "trunk_int8_flat", "trunk_int8_dxcat")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",

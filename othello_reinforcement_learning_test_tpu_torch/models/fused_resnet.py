@@ -8,14 +8,13 @@ XLA; the residual tower goes through a hand-written kernel:
 
 - ``matmul9``: ``kernels/trunk_matmul9.py``; ``wide``: ``kernels/trunk_wide.py``;
 - ``int8`` and ``int8_bf16``: ``kernels/trunk_int8.py``;
-- ``int8_m9``, ``int8_patch``, ``int8_flat`` and ``int8_dx3``:
-  ``kernels/trunk_int8_m9.py``, ``trunk_int8_patch.py``,
-  ``trunk_int8_flat.py`` and ``trunk_int8_dx3.py``.
+- ``int8_m9``, ``int8_patch``, ``int8_flat``, ``int8_dx3`` and
+  ``int8_dxcat``: ``kernels/trunk_int8_m9.py``, ``trunk_int8_patch.py``,
+  ``trunk_int8_flat.py``, ``trunk_int8_dx3.py`` and ``trunk_int8_dxcat.py``.
 
 Variant ``int8_xla`` has no kernel in the JAX package either: it is the
 plain quantized trunk with one activation scale per batch, on both devices.
-``ROADMAP.md`` lists ``int8_dxcat``, the one variant of the JAX package's
-``FusedInference.VARIANTS`` not yet ported.
+Every variant of the JAX package's ``FusedInference.VARIANTS`` is ported.
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ import torch
 
 from ..kernels.trunk_int8 import tap_major, trunk_int8
 from ..kernels.trunk_int8_dx3 import trunk_int8_dx3
+from ..kernels.trunk_int8_dxcat import trunk_int8_dxcat
 from ..kernels.trunk_int8_flat import trunk_int8_flat
 from ..kernels.trunk_int8_m9 import trunk_int8_m9
 from ..kernels.trunk_int8_patch import trunk_int8_patch
@@ -35,7 +35,7 @@ from .resnet import OthelloResNet
 
 BN_EPS = 1e-5
 PORTED_VARIANTS = ("int8_dx3", "matmul9", "wide", "int8", "int8_bf16", "int8_m9",
-                   "int8_patch", "int8_flat", "int8_xla")
+                   "int8_patch", "int8_flat", "int8_dxcat", "int8_xla")
 # games per activation-scale block when ``block_games`` is 0: the JAX
 # package's table (``pallas_resnet.py:619-623``); halved until it divides
 # the batch. 0 for int8_xla: one scale per batch.
@@ -93,12 +93,21 @@ def dx3_weights(w_int8: torch.Tensor) -> torch.Tensor:
     return wt.permute(0, 3, 1, 2, 4).reshape(L, 3, C, 3 * C).contiguous()
 
 
+def dxcat_weights(w_int8: torch.Tensor) -> torch.Tensor:
+    """(L, C, 9C) tap-major int8 weights -> (L, 3, 3C, C): dy-major groups,
+    rows (dx block, C_in)-major to match the lane-concatenated input."""
+    L, C, _ = w_int8.shape
+    wt = w_int8.reshape(L, C, 3, 3, C)  # (L, C_in, dy, dx, C_out)
+    return wt.permute(0, 2, 3, 1, 4).reshape(L, 3, 3 * C, C).contiguous()
+
+
 # the int8 kernels that take the (L, C, 9C) weights relaid out, and how
 INT8_KERNELS = {
     "int8_dx3": (trunk_int8_dx3, dx3_weights),
     "int8_m9": (trunk_int8_m9, m9_weights),
     "int8_patch": (trunk_int8_patch, tap_major),
     "int8_flat": (trunk_int8_flat, tap_major),
+    "int8_dxcat": (trunk_int8_dxcat, dxcat_weights),
 }
 
 
@@ -122,16 +131,14 @@ class FusedInference:
     - ``int8``, ``int8_bf16``: the quantized trunk in the tap-major
       (L, C, 9C) layout; ``int8_bf16`` rounds each tap's product to bf16;
     - ``int8_m9`` (L, 9, C, C), ``int8_patch`` and ``int8_flat`` (L, 9C, C),
-      ``int8_dx3`` (L, 3, C, 3C): the same quantized function, each in its
-      kernel's layout.
+      ``int8_dx3`` (L, 3, C, 3C), ``int8_dxcat`` (L, 3, 3C, C): the same
+      quantized function, each in its kernel's layout.
     """
 
     def __init__(self, model: OthelloResNet, variant: str = "int8_dx3",
                  block_games: int = 0):
         if variant not in PORTED_VARIANTS:
-            raise ValueError(
-                f"variant {variant!r} is not ported: ROADMAP.md lists it as "
-                f"not yet ported; only {PORTED_VARIANTS} are")
+            raise ValueError(f"variant must be one of {PORTED_VARIANTS}, got {variant!r}")
         # quantized.py imports fold_block_params from this module
         from .quantized import quantize_trunk
 

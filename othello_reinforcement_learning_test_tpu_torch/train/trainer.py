@@ -3,17 +3,24 @@
 Port of ``othello_reinforcement_learning_test_tpu/train/trainer.py``. Each
 iteration (``AlphaZeroTrainer._train_iteration``):
 
-1. plays ``self_play_episodes_per_iter`` games with the current network
+1. plays ``self_play_episodes_per_iter`` games with the current network,
+   or with gating on, the best network so far
    (``system.self_play_net_variant``: ``"xla"`` is the plain eval forward,
-   ``"int8_dx3"``, ``"matmul9"``, ``"int8"`` and ``"int8_bf16"`` run the
-   hand-written trunk kernels, ``"int8_xla"`` the plain quantized trunk);
-   the fused network is rebuilt from the current parameters before every
-   self-play, since ``FusedInference`` folds its weights once;
+   ``"int8_xla"`` the plain quantized trunk, and every other variant of
+   ``FusedInference`` runs its hand-written trunk kernel); the fused network
+   is rebuilt from the parameters before every self-play, since
+   ``FusedInference`` folds its weights once;
 2. adds the trajectories to the ring buffer;
 3. takes ``train_epochs_per_iter`` SGD minibatch steps (a Python loop in
    place of the JAX ``scan``);
-4. writes the metrics, and every ``checkpoint_interval`` iterations a full
-   checkpoint.
+4. writes the metrics;
+5. with ``training.gating.enabled``, every ``gating.interval`` iterations
+   plays a gate match of the candidate (the current network) against the
+   best so far through the self-play forward, and adopts the candidate as
+   best when its decisive win rate (wins / (wins + losses), 0.5 when every
+   game is drawn) reaches ``gating.win_threshold``;
+6. every ``checkpoint_interval`` iterations writes a full checkpoint, the
+   best network included.
 
 Semantics kept from the JAX package:
 
@@ -30,13 +37,16 @@ Semantics kept from the JAX package:
   as the JAX network) with float32 parameters and BatchNorm statistics;
 - ``train`` self-heals: after a failed iteration it restores the last
   checkpoint this run wrote or loaded, or, before the first one, the
-  snapshot taken at the iteration's start, within a bounded number of
-  consecutive retries.
+  snapshot taken at the iteration's start (best network included), within
+  a bounded number of consecutive retries;
+- on resume the config's gating setting wins over the checkpoint's: a
+  checkpoint's best network is restored only with gating on, and with
+  gating on and no best network in the checkpoint, best is the restored
+  candidate.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: arena gating (``training.gating.enabled``, the evaluation slice)
-and data parallelism (``system.mesh_devices``, the data-parallel slice);
-``ROADMAP.md`` lists both.
+ignored: data parallelism (``system.mesh_devices``, the data-parallel
+slice; ``ROADMAP.md`` lists it).
 """
 
 from __future__ import annotations
@@ -45,10 +55,12 @@ import copy
 import dataclasses
 import os
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..evaluation.arena import Arena, MatchSummary
+from ..evaluation.players import MCTSPlayer
 from ..models.convert import from_jax_variables, init_train_variables, to_jax_variables
 from ..models.fused_resnet import PORTED_VARIANTS, FusedInference
 from ..models.resnet import OthelloResNet, param_count
@@ -248,7 +260,7 @@ class AlphaZeroTrainer:
         if sc.get("mesh_devices"):
             raise NotImplementedError(
                 "system.mesh_devices (data-parallel training) is not ported yet: "
-                "ROADMAP.md section 2, the data-parallel slice")
+                "ROADMAP.md section 1, the data-parallel slice")
 
         tc = config.get("training", {})
         self.batch_size = int(tc.get("batch_size", 256))
@@ -269,10 +281,13 @@ class AlphaZeroTrainer:
         if not isinstance(gate, dict):
             raise ValueError("training.gating must be a mapping, e.g. {enabled: true, "
                              f"games: 40, win_threshold: 0.55}}; got {gate!r}")
-        if gate.get("enabled", False):
-            raise NotImplementedError(
-                "training.gating.enabled needs the arena and MCTSPlayer, which are "
-                "not ported yet: ROADMAP.md section 2, the evaluation slice")
+        self.gating_enabled = bool(gate.get("enabled", False))
+        self.gating_games = int(gate.get("games", 40) or 40)
+        self.gating_threshold = float(gate.get("win_threshold", 0.55))
+        self.gating_interval = int(gate.get("interval") or tc.get("checkpoint_interval", 10))
+        self.gating_sims = int(gate.get("num_simulations")
+                               or config.get("mcts", {}).get("num_simulations", 25))
+        self.gating_opening = int(gate.get("opening_random_plies", 4))
 
         mcc = config.get("mcts", {})
         self.num_simulations = int(mcc.get("num_simulations", 25))
@@ -308,10 +323,18 @@ class AlphaZeroTrainer:
                                             device=self.device)
         self.variant = str(sc.get("self_play_net_variant") or "xla")
         if self.variant != "xla" and self.variant not in PORTED_VARIANTS:
-            raise ValueError(f"system.self_play_net_variant {self.variant!r} is not "
-                             f"ported: 'xla' or one of {PORTED_VARIANTS}")
+            raise ValueError(f"system.self_play_net_variant {self.variant!r} is unknown: "
+                             f"'xla' or one of {PORTED_VARIANTS}")
         if self.variant != "xla":
             self.log(f"self-play inference: fused trunk kernel ({self.variant})")
+        # arena gating: self-play plays the best network so far (a state dict
+        # on the device, run through a model of its own); the candidate must
+        # beat it in a gate match to replace it
+        self.best: Optional[Dict[str, torch.Tensor]] = None
+        self._best_model: Optional[OthelloResNet] = None
+        if self.gating_enabled:
+            self.best = self._model_state()
+            self._best_model = copy.deepcopy(self.model)
         # self-healing: the last checkpoint THIS run wrote or loaded, and
         # before the first one a snapshot of the state at the iteration's start
         self._heal_ckpt: Optional[str] = None
@@ -323,6 +346,10 @@ class AlphaZeroTrainer:
 
     def _draw_seed(self) -> int:
         return int(torch.randint(0, 2 ** 62, (1,), generator=self.rng))
+
+    def _model_state(self) -> Dict[str, torch.Tensor]:
+        """A copy of the current network's parameters and statistics."""
+        return {k: t.detach().clone() for k, t in self.model.state_dict().items()}
 
     # -- checkpointing -----------------------------------------------------
     def _rng_state(self) -> Dict:
@@ -338,16 +365,19 @@ class AlphaZeroTrainer:
         path = os.path.join(self.checkpoint_dir, name + ckpt_lib.SUFFIX)
         ckpt_lib.save_full(path, train_state=self.state.state_dict(),
                            buffer=self.buffer.state_dict(), rng=self._rng_state(),
-                           config=self.config)
+                           config=self.config, best=self.best)
         self._heal_ckpt = path
         self._pre_iter_snapshot = None
         return path
 
     def load_checkpoint(self, path: str) -> None:
         """Restore the train state, and for format-2 checkpoints whose buffer
-        matches the config, the buffer and generators too; otherwise the
-        run resumes with an empty buffer (a warning says so)."""
+        matches the config, the buffer, generators and gating best network
+        too; otherwise the run resumes with an empty buffer (a warning says
+        so). With gating on and no best network restored, best is the
+        restored candidate."""
         meta = ckpt_lib.load_meta(path)
+        restored_best = False
         if meta.get("format", 1) >= 2:
             if (int(meta.get("buffer_capacity", -1)) != self.buffer.capacity
                     or meta.get("buffer_class") != type(self.buffer).__name__):
@@ -363,10 +393,21 @@ class AlphaZeroTrainer:
                     {k: v.to(self.device) if isinstance(v, torch.Tensor) else v
                      for k, v in restored["buffer"].items()})
                 self._set_rng_state(restored["rng"])
+                if "best" in restored:
+                    if self.gating_enabled:
+                        self.best = {k: t.to(self.device) for k, t in restored["best"].items()}
+                        restored_best = True
+                    else:
+                        # the config's gating setting wins over the checkpoint's
+                        self.log("note: checkpoint has a gating best-network but "
+                                 "training.gating.enabled is false; ignoring it")
         else:
             self.state.load_state_dict(ckpt_lib.load(path))
             self.log("warning: format-1 checkpoint (no buffer/RNG state); "
                      "resuming with an empty buffer")
+        if self.gating_enabled and not restored_best:
+            # never leave gated self-play on the pre-resume network
+            self.best = self._model_state()
         self._heal_ckpt = path
         self.log(f"resumed from {path} at iteration {self.state.iteration}")
 
@@ -376,11 +417,20 @@ class AlphaZeroTrainer:
         arrays."""
         return to_jax_variables(self.model.state_dict())
 
-    def selfplay_net(self):
-        """The self-play network, built from the current parameters."""
+    def _net(self, model: OthelloResNet):
+        """The self-play forward of ``model``'s current parameters."""
         if self.variant == "xla":
-            return apply_eval(self.model, self.compute_dtype)
-        return FusedInference(self.model, variant=self.variant)
+            return apply_eval(model, self.compute_dtype)
+        return FusedInference(model, variant=self.variant)
+
+    def _best_net(self):
+        self._best_model.load_state_dict(self.best)
+        return self._net(self._best_model)
+
+    def selfplay_net(self):
+        """The self-play network: the best so far with gating on, else the
+        current one."""
+        return self._best_net() if self.gating_enabled else self._net(self.model)
 
     def run_self_play(self, num_games: int, add_noise: bool = True) -> Trajectory:
         net = self.selfplay_net()
@@ -400,7 +450,41 @@ class AlphaZeroTrainer:
 
     def _snapshot(self):
         return (copy.deepcopy(self.state.state_dict()), self.buffer.clone(),
-                copy.deepcopy(self._rng_state()))
+                copy.deepcopy(self._rng_state()), copy.deepcopy(self.best))
+
+    def _gate_match(self, seed: int) -> Tuple[float, MatchSummary]:
+        """The candidate (current parameters) against the best so far, both
+        through the self-play forward: ``(decisive win rate, summary)``, the
+        rate wins / (wins + losses), 0.5 if every game is drawn. Separate
+        so that tests can rig the outcome."""
+        def player(net):
+            return MCTSPlayer(self.engine, net, num_simulations=self.gating_sims,
+                              c_puct=self.c_puct)
+
+        s = Arena(self.engine, device=self.device).play_matches(
+            player(self._net(self.model)), player(self._best_net()), self.gating_games, seed,
+            opening_random_plies=self.gating_opening)
+        decisive = s.wins + s.losses
+        return (s.wins / decisive if decisive else 0.5), s
+
+    def run_gating(self, iteration: int) -> Optional[bool]:
+        """Gate the candidate if it is due at this iteration: True when it
+        is adopted as best, False when best is kept, None when gating is off
+        or not due."""
+        if not self.gating_enabled or iteration % self.gating_interval != 0:
+            return None
+        t0 = time.time()
+        win_rate, s = self._gate_match(self._draw_seed())
+        accepted = win_rate >= self.gating_threshold
+        if accepted:
+            self.best = self._model_state()
+        self.writer.scalar("Gating/win_rate", win_rate, iteration)
+        self.writer.scalar("Gating/accepted", float(accepted), iteration)
+        self.log(f"gating @ iter {iteration}: candidate {s.wins}W-{s.losses}L-{s.draws}D "
+                 f"(decisive {win_rate:.1%}) -> "
+                 f"{'ADOPTED as best' if accepted else 'rejected (best kept)'} "
+                 f"[{time.time() - t0:.1f}s]")
+        return accepted
 
     def train(self, num_iterations: Optional[int] = None,
               episodes_per_iter: Optional[int] = None) -> Dict[str, float]:
@@ -447,19 +531,20 @@ class AlphaZeroTrainer:
             self.log(f"self-heal: restoring {self._heal_ckpt}")
             self.load_checkpoint(self._heal_ckpt)
             return self.state.iteration
-        resume_it, (state, buf, rng) = self._pre_iter_snapshot
+        resume_it, (state, buf, rng, best) = self._pre_iter_snapshot
         self.log(f"self-heal: no checkpoint yet; rolling back to the start of "
                  f"iteration {resume_it + 1}")
         # restore copies, so the snapshot stays intact for a further retry
         self.state.load_state_dict(copy.deepcopy(state))
         self.buffer = buf.clone()
         self._set_rng_state(rng)
+        self.best = copy.deepcopy(best)
         return resume_it
 
     def _train_iteration(self, it: int, episodes: int, num_iterations: int,
                          recent_iter_times: list, recent_losses: list) -> Dict[str, float]:
-        """Self-play -> buffer -> SGD steps -> metrics -> periodic checkpoint.
-        An exception leaves recovery to ``train``."""
+        """Self-play -> buffer -> SGD steps -> metrics -> gating -> periodic
+        checkpoint. An exception leaves recovery to ``train``."""
         t0 = time.time()
         traj = self.run_self_play(episodes)
         _sync(self.device)
@@ -515,6 +600,8 @@ class AlphaZeroTrainer:
         self.log(f"iter {it + 1}/{num_iterations} loss={scalars['Loss/train']:.4f}{trend} "
                  f"self_play={sp_time:.1f}s train={tr_time:.1f}s "
                  f"buffer={stats['size']} eta={eta / 60:.1f}m")
+
+        self.run_gating(it + 1)
 
         if (it + 1) % self.checkpoint_interval == 0:
             t2 = time.time()

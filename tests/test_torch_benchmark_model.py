@@ -2,8 +2,8 @@
 (``othello_reinforcement_learning_test_tpu_torch/benchmark_model.py``) on the
 CPU at a tiny size: one row per (table, batch) for the unfused forward at
 bf16 and f32 and for every ported fused variant, the flags and defaults of
-the JAX package's ``benchmark_model.py``, and the refusal of the variant
-that is not ported. Numbers from a CPU run are not device metrics; only the
+the JAX package's ``benchmark_model.py``, and the refusal of a name that
+is no variant. Numbers from a CPU run are not device metrics; only the
 rows are checked here.
 """
 
@@ -54,6 +54,12 @@ def test_flag_defaults_match_benchmark_model_py(monkeypatch):
     assert got == want
 
 
-def test_unported_variant_names_roadmap():
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        benchmark_model.run(TINY + ["--fused", "--fused-variants", "matmul9", "int8_dxcat"])
+def test_unported_variant_names_roadmap(capsys):
+    """``int8_dxcat``, the last variant to be ported, gives a row per batch;
+    a name that is no variant is refused before anything runs."""
+    out = benchmark_model.run(TINY + ["--fused", "--fused-variants", "int8_dxcat"])
+    assert [(r["table"], r["batch"]) for r in out["rows"] if r["table"] == "int8_dxcat"] == [
+        ("int8_dxcat", 1), ("int8_dxcat", 8)]
+    assert "--- fused trunk variant int8_dxcat (eval mode, block_games=64" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="unknown fused variant"):
+        benchmark_model.run(TINY + ["--fused", "--fused-variants", "matmul9", "int8_dx4"])

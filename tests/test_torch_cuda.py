@@ -5,7 +5,7 @@ CUDA card. Imports no JAX, so it runs where only torch is installed:
 
 Without a card every test skips. Tolerances:
 - ``int8_dx3``, ``trunk_int8`` (both ``stage_bf16`` settings),
-  ``int8_m9``, ``int8_patch`` and ``int8_flat``: bit-exact (the plain
+  ``int8_m9``, ``int8_patch``, ``int8_flat`` and ``int8_dxcat``: bit-exact (the plain
   versions repeat the kernels' arithmetic, and int32 sums are exact in any
   order);
 - ``random_step``: boards and ``live`` bit-exact against
@@ -40,6 +40,10 @@ from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8 import (
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dx3 import (
     trunk_int8_dx3,
     trunk_int8_dx3_plain,
+)
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dxcat import (
+    trunk_int8_dxcat,
+    trunk_int8_dxcat_plain,
 )
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_flat import (
     trunk_int8_flat,
@@ -257,7 +261,8 @@ def test_play_random_games_kernel_matches_cpu():
 
 INT8_KERNELS = {"int8_m9": (trunk_int8_m9, trunk_int8_m9_plain),
                 "int8_patch": (trunk_int8_patch, trunk_int8_patch_plain),
-                "int8_flat": (trunk_int8_flat, trunk_int8_flat_plain)}
+                "int8_flat": (trunk_int8_flat, trunk_int8_flat_plain),
+                "int8_dxcat": (trunk_int8_dxcat, trunk_int8_dxcat_plain)}
 
 
 @pytest.fixture(scope="module")

@@ -146,8 +146,16 @@ def test_block_size_rule(batch, block_games, expected):
     assert block_size(batch, block_games) == expected
 
 
-@pytest.mark.parametrize("variant", ["int8_dxcat"])
+@pytest.mark.parametrize("variant", ["int8_dx4", "xla", "INT8"])
 def test_unported_variants_raise(variant):
+    """Every variant of the JAX package is ported, so what is left to refuse
+    is a name the JAX ``FusedInference`` refuses too: a ValueError."""
+    from othello_reinforcement_learning_test_tpu.models.pallas_resnet import (
+        FusedInference as JaxFused,
+    )
+
+    with pytest.raises(ValueError):
+        JaxFused(JaxResNet(num_blocks=1, num_filters=16), variant=variant)
     m = port_model(init_numpy_variables(1, 16, seed=0), 1, 16)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="variant must be one of"):
         FusedInference(m, variant=variant)

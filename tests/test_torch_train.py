@@ -496,7 +496,6 @@ def test_self_play_in_chunks_of_num_parallel_games(tmp_path):
 
 
 @pytest.mark.parametrize("section,key,value,match", [
-    ("training", "gating", {"enabled": True}, "evaluation slice"),
     ("system", "mesh_devices", 2, "data-parallel slice"),
 ])
 def test_unported_options_raise(tmp_path, section, key, value, match):
@@ -541,6 +540,9 @@ def test_trainer_modules_import_no_jax():
         "import othello_reinforcement_learning_test_tpu_torch.train.buffer\n"
         "import othello_reinforcement_learning_test_tpu_torch.kernels.trunk_matmul9\n"
         "import othello_reinforcement_learning_test_tpu_torch.utils.metrics\n"
+        "import othello_reinforcement_learning_test_tpu_torch.evaluation\n"
+        "import othello_reinforcement_learning_test_tpu_torch.ops.native\n"
+        "import othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dxcat\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'yaml', 'pydantic', "
         "'othello_reinforcement_learning_test_tpu')]\n"

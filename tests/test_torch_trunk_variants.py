@@ -1,4 +1,4 @@
-"""The ``wide``, ``int8_m9``, ``int8_patch`` and ``int8_flat`` trunks: the
+"""The ``wide``, ``int8_m9``, ``int8_patch``, ``int8_flat`` and ``int8_dxcat`` trunks: the
 plain PyTorch versions (as the wrappers run them on the CPU) against the JAX
 package's Pallas kernels in interpret mode, the weight layouts, the block
 sizes and ``FusedInference``. ``tests/test_torch_cuda.py`` holds the CUDA
@@ -6,8 +6,8 @@ kernels against the plain versions on a card.
 
 Tolerances, each with its reason:
 - plain trunk vs ``fused_trunk_wide`` / ``fused_trunk_int8(kernel="m9" /
-  "patch" / "flat", block_games=32)`` in interpret mode at 2 blocks x 32
-  channels: at most 1 bf16 ulp in under 1e-3 of the outputs, the bar of
+  "patch" / "flat" / "dxcat")`` in interpret mode at the variant's default
+  block size (32; ``dxcat`` 64), 2 blocks x 32 channels: at most 1 bf16 ulp in under 1e-3 of the outputs, the bar of
   ``tests/test_torch_trunk_int8.py``. On the int8 path XLA's CPU compiler
   fuses the interpreted kernel's dequantisation ``acc * scale + bias`` into
   one multiply-add where the port rounds product and sum, and an ulp of f32
@@ -35,6 +35,10 @@ from othello_reinforcement_learning_test_tpu.models.pallas_resnet import (
 )
 from othello_reinforcement_learning_test_tpu.models.resnet import OthelloResNet as JaxResNet
 from othello_reinforcement_learning_test_tpu_torch.kernels import build
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dxcat import (
+    trunk_int8_dxcat,
+    trunk_int8_dxcat_plain,
+)
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_flat import (
     trunk_int8_flat,
     trunk_int8_flat_plain,
@@ -68,6 +72,7 @@ from othello_reinforcement_learning_test_tpu_torch.models.fused_resnet import (
     DEFAULT_BLOCK_GAMES,
     INT8_KERNELS,
     FusedInference,
+    dxcat_weights,
     fold_block_params,
     fold_block_params_wide,
 )
@@ -76,7 +81,8 @@ from othello_reinforcement_learning_test_tpu_torch.models.resnet import OthelloR
 NUM_BLOCKS, CHANNELS = 2, 32
 INT8_VARIANTS = {"int8_m9": ("m9", trunk_int8_m9, trunk_int8_m9_plain),
                  "int8_patch": ("patch", trunk_int8_patch, trunk_int8_patch_plain),
-                 "int8_flat": ("flat", trunk_int8_flat, trunk_int8_flat_plain)}
+                 "int8_flat": ("flat", trunk_int8_flat, trunk_int8_flat_plain),
+                 "int8_dxcat": ("dxcat", trunk_int8_dxcat, trunk_int8_dxcat_plain)}
 
 
 def bf16_ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -112,14 +118,15 @@ def kernel_args(variant, variables, hb):
         w, b = fold_block_params_wide(port_model(variables))
         return ref, (x, w, b)
     jqt = jq.quantize_trunk(variables, NUM_BLOCKS)
-    ref = fused_trunk_int8(hb, jqt.w_int8, jqt.w_scale, jqt.bias, NUM_BLOCKS, block_games=32,
-                           interpret=True, kernel=INT8_VARIANTS[variant][0])
+    ref = fused_trunk_int8(hb, jqt.w_int8, jqt.w_scale, jqt.bias, NUM_BLOCKS,
+                           block_games=DEFAULT_BLOCK_GAMES[variant], interpret=True,
+                           kernel=INT8_VARIANTS[variant][0])
     fused = FusedInference(port_model(variables), variant=variant)
     return ref, (x, fused.trunk_w, fused.trunk_scale, fused.trunk_bias)
 
 
 @pytest.mark.parametrize("variant", ["wide", *INT8_VARIANTS])
-@pytest.mark.parametrize("batch", [64, 24])  # bg 32 (wide: 16), and bg 8
+@pytest.mark.parametrize("batch", [64, 24])  # bg 32 (wide: 16, dxcat: 64), and bg 8
 def test_plain_trunk_matches_pallas_interpret(variant, batch):
     variables = init_numpy_variables(NUM_BLOCKS, CHANNELS, seed=3)
     ref, args = kernel_args(variant, variables, trunk_input(batch))
@@ -149,12 +156,17 @@ def test_fold_block_params_wide_matches_jax():
 @pytest.mark.parametrize("variant", list(INT8_VARIANTS))
 def test_int8_relayouts_match_jax(variant):
     """Each kernel's weights as ``fused_trunk_int8`` relays them out
-    (``pallas_resnet.py:522-525`` for m9, ``:548-553`` for patch and flat)."""
+    (``pallas_resnet.py:522-525`` for m9, ``:537-547`` for dxcat, ``:548-553``
+    for patch and flat)."""
     variables = init_numpy_variables(NUM_BLOCKS, CHANNELS, seed=7)
     jqt = jq.quantize_trunk(variables, NUM_BLOCKS)
     L, C = 2 * NUM_BLOCKS, CHANNELS
     if variant == "int8_m9":
         want = jqt.w_int8.reshape(L, C, 9, C).transpose(0, 2, 1, 3)
+    elif variant == "int8_dxcat":
+        want = jqt.w_int8.reshape(L, C, 3, 3, C).transpose(0, 2, 3, 1, 4).reshape(L, 3, 3 * C, C)
+        assert torch.equal(dxcat_weights(torch.from_numpy(np.array(jqt.w_int8))),
+                           torch.from_numpy(np.array(want)))
     else:
         want = jqt.w_int8.reshape(L, C, 9, C).transpose(0, 2, 1, 3).reshape(L, 9 * C, C)
     fused = FusedInference(port_model(variables), variant=variant)
@@ -165,7 +177,7 @@ def test_int8_relayouts_match_jax(variant):
 
 @pytest.mark.parametrize("variant,probs,value", [
     ("wide", 0.03, 0.05), ("int8_m9", 0.02, 0.04), ("int8_patch", 0.02, 0.04),
-    ("int8_flat", 0.02, 0.04)])
+    ("int8_flat", 0.02, 0.04), ("int8_dxcat", 0.02, 0.04)])
 def test_fused_inference_matches_jax(variant, probs, value):
     num_blocks, batch = 2, 16
     variables = init_numpy_variables(num_blocks, 128, seed=13)
@@ -186,9 +198,8 @@ def test_default_block_sizes_match_jax():
     for variant in JaxFused.VARIANTS:
         want = JaxFused(jm, variant=variant).block_games
         assert DEFAULT_BLOCK_GAMES[variant] == want, variant
-        if variant != "int8_dxcat":
-            assert FusedInference(m, variant=variant).block_games == want, variant
-            assert FusedInference(m, variant=variant, block_games=4).block_games == 4
+        assert FusedInference(m, variant=variant).block_games == want, variant
+        assert FusedInference(m, variant=variant, block_games=4).block_games == 4
 
 
 @pytest.mark.parametrize("variant", list(INT8_VARIANTS))
