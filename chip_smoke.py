@@ -12,7 +12,9 @@ each as they finish:
                  ``trunk_int8_m9``, ``trunk_int8_patch``,
                  ``trunk_int8_flat``, ``trunk_int8_dxcat``) built from
                  ``csrc/`` with nvcc, in parallel; ptxas registers and
-                 shared memory;
+                 shared memory; for ``trunk_matmul9`` and ``trunk_wide``
+                 their HGMMA (wgmma) count from ``cuobjdump -sass``, which
+                 must not be 0;
 3. kernel_check  the ``int8_dx3`` trunk kernel against its plain PyTorch
                  version on the card, at B=1024 (bg 64), B=24 (bg 8) and
                  B=3 (bg 1), on
@@ -20,7 +22,8 @@ each as they finish:
                  numpy seed. Tolerance: bit-exact (the plain version repeats
                  the kernel's arithmetic); also FusedInference with the
                  kernel against the same forward with the plain trunk.
-                 Then the ``matmul9`` kernel on the same inputs, with the
+                 Then the ``matmul9`` kernel on the same inputs (B=1024,
+                 267, 24, 3 and 1), with the
                  same weights and with the trainer's initial (flax-init)
                  weights: the whole trunk equal bit for bit to its 20 convs
                  launched one by one (the kernel sums in a fixed order);
@@ -42,7 +45,7 @@ each as they finish:
                  (bg 8) and B=3 on the same stem outputs: bit-exact; and
                  FusedInference(int8) with the kernel against the plain
                  trunk. Then ``trunk_wide`` on both weight sets as
-                 ``matmul9`` (batches 1024, 24, 3): the trunk equal bit for
+                 ``matmul9`` (batches 1024, 267, 24, 3, 1): the trunk equal bit for
                  bit to its 20 convs, each conv within the bf16 default plus
                  ``sum_error_bound`` plus one bf16 ulp of each tap's product
                  (``trunk_wide.conv_bound``: the tensor cores' order of each
@@ -114,7 +117,8 @@ each as they finish:
                  time, device-busy time and idle share, time by kernel;
 11. timing       the eight trunk kernels and their plain versions at B=1024
                  and, for ``matmul9`` and ``wide``, the same folded tower as
-                 20 cuDNN convolutions; ``random_step`` and its plain version for one
+                 20 cuDNN convolutions and the kernel's device time per
+                 forward from torch.profiler; ``random_step`` and its plain version for one
                  ply of 4,194,304 games (CUDA events; their outputs must be
                  bit-equal); the bounds, launches per forward.
 
@@ -131,6 +135,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -343,6 +348,46 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def trunk_device_ms(fn, reps: int = 10) -> dict:
+    """A bf16 trunk's device time per forward under torch.profiler: its
+    ``bf16_conv_kernel`` launches' durations summed (``device_ms``), the span
+    from the first launch's start to the last one's end (``device_span_ms``,
+    which also counts the gaps between launches), and the launches a
+    forward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "bf16_conv_kernel" in e.name]
+    if not kernels:
+        return {"device_ms": "not measured"}
+    start = min(e.time_range.start for e in kernels)
+    end = max(e.time_range.end for e in kernels)
+    return {"device_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps,
+            "device_span_ms": (end - start) / 1e3 / reps,
+            "device_launches_per_forward": len(kernels) / reps}
+
+
+def wgmma_evidence(builds: dict) -> None:
+    """The bf16 trunks' HGMMA (wgmma) instruction count from ``cuobjdump
+    -sass``, where the toolkit has it (their ptxas report is in the build
+    lines)."""
+    cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
+    for kname in ("trunk_matmul9", "trunk_wide"):
+        hgmma = "not measured"
+        if cuobjdump.is_file():
+            sass = subprocess.run([str(cuobjdump), "-sass", str(builds[kname].path)],
+                                  capture_output=True, text=True, timeout=120).stdout
+            hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
+            check(hgmma > 0, f"{kname} issues wgmma (HGMMA in its SASS)")
+        phase("build", kernel=kname, hgmma_instructions=hgmma)
+
+
 def trunk_bound_ms(batch: int, layers: int, channels: int, bf16: bool = False) -> tuple:
     """Least time for one trunk forward on this card: operations over the
     tensor-core rate of their type, bytes (bf16 in and out; int8 weights
@@ -365,7 +410,7 @@ def matmul9_bound(src, w, b, want):
 
 
 def check_bf16_convs(name, trunk, trunk_plain, conv, conv_ref, bound, fused, feats,
-                     weights: str, batches=(GAMES, 24, 3)) -> float:
+                     weights: str, batches=(GAMES, 267, 24, 3, 1)) -> float:
     """A bf16 trunk kernel against its plain version (see the module
     docstring): the whole trunk equal bit for bit to its 20 convs launched
     one by one, and each conv within ``bound(src, w, b, want)`` of the plain
@@ -416,7 +461,7 @@ def check_bf16_convs(name, trunk, trunk_plain, conv, conv_ref, bound, fused, fea
 
 
 def check_matmul9(fused_m9, feats, weights: str, check_forward: bool) -> float:
-    """The matmul9 kernel against its plain version at B=1024, 24 and 3 (see
+    """The matmul9 kernel against its plain version at B=1024, 267, 24, 3 and 1 (see
     the module docstring); returns the largest per-conv difference."""
     w, b = fused_m9.trunk_w, fused_m9.trunk_bias
     max_abs_err = check_bf16_convs("trunk_matmul9", trunk_matmul9, trunk_matmul9_plain,
@@ -456,7 +501,7 @@ def check_matmul9(fused_m9, feats, weights: str, check_forward: bool) -> float:
 
 
 def check_wide(fused_w, feats, weights: str, check_forward: bool) -> float:
-    """The wide kernel against its plain version at B=1024, 24 and 3, conv by
+    """The wide kernel against its plain version at B=1024, 267, 24, 3 and 1, conv by
     conv within ``conv_bound`` (PyTorch's bf16 default, the f32 summation
     bound and one bf16 ulp of each tap's product), the trunk equal to its 20
     convs; FusedInference(wide) against the plain trunk at probs 0.03 /
@@ -1032,6 +1077,7 @@ def main() -> int:
         phase("build", kernel=kname, seconds=round(built.seconds, 2),
               library=built.path.name, ptxas=ptxas)
     phase("build", wall_seconds=round(time.perf_counter() - t0, 2))
+    wgmma_evidence(builds)
 
     # 10x128 weights from a numpy seed, through the flax-layout converter
     model = OthelloResNet(NUM_BLOCKS, NUM_FILTERS)
@@ -1166,6 +1212,7 @@ def main() -> int:
     w_oihw = [w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last) for w in w9]
     b_bf16 = b9.to(torch.bfloat16)
     m9_ms = time_ms(lambda: trunk_matmul9(h9, w9, b9), reps=20)
+    m9_device = trunk_device_ms(lambda: trunk_matmul9(h9, w9, b9))
     m9_plain_ms = time_ms(lambda: trunk_matmul9_plain(h9, w9, b9), reps=3, warmup=1)
     m9_forward_ms = time_ms(lambda: fused_m9(feats), reps=20)
     cudnn_ms = time_ms(lambda: cudnn_tower(h9, w_oihw, b_bf16), reps=20)
@@ -1197,6 +1244,7 @@ def main() -> int:
     fused_w = FusedInference(model_t, variant="wide")
     hw, ww, bw = fused_w.stem(feats), fused_w.trunk_w, fused_w.trunk_bias
     wide_ms = time_ms(lambda: trunk_wide(hw, ww, bw), reps=20)
+    wide_device = trunk_device_ms(lambda: trunk_wide(hw, ww, bw))
     wide_plain_ms = time_ms(lambda: trunk_wide_plain(hw, ww, bw), reps=3, warmup=1)
     wide_forward_ms = time_ms(lambda: fused_w(feats), reps=20)
     w_wide = [hwio(wl).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -1217,7 +1265,7 @@ def main() -> int:
           bound_ms=bound_ms, bound_by=bound_by, fused_forward_ms=forward_ms,
           launches_per_forward=layers, launches_per_ply=launches / plies,
           forward_share_of_selfplay=forward_ms * forwards / 1e3 / seconds)
-    phase("timing", kernel="trunk_matmul9", batch=GAMES, kernel_ms=m9_ms,
+    phase("timing", kernel="trunk_matmul9", batch=GAMES, kernel_ms=m9_ms, **m9_device,
           plain_ms=m9_plain_ms, bound_ms=m9_bound_ms, bound_by=m9_bound_by,
           fused_forward_ms=m9_forward_ms, launches_per_forward=layers,
           library_ms=cudnn_ms, library="cuDNN tower: 20 bf16 F.conv2d calls (channels last) "
@@ -1226,7 +1274,7 @@ def main() -> int:
           kernel_bf16_ms=int8_bf16_ms, plain_ms=int8_plain_ms,
           plain_bf16_ms=int8_bf16_plain_ms, bound_ms=bound_ms, bound_by=bound_by,
           fused_forward_ms=int8_forward_ms, launches_per_forward=layers, library_ms=None)
-    phase("timing", kernel="trunk_wide", batch=GAMES, kernel_ms=wide_ms,
+    phase("timing", kernel="trunk_wide", batch=GAMES, kernel_ms=wide_ms, **wide_device,
           plain_ms=wide_plain_ms, bound_ms=m9_bound_ms, bound_by=m9_bound_by,
           fused_forward_ms=wide_forward_ms, launches_per_forward=layers,
           library_ms=wide_cudnn_ms, library="the same cuDNN tower as trunk_matmul9's, on "

@@ -17,6 +17,7 @@ kernel is held against, not a speed yardstick.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -101,38 +102,47 @@ def check_bf16_args(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, w_tail
     return L
 
 
+@functools.cache
 def bf16_conv_function(name: str, symbol: str):
     """``symbol`` of ``csrc/<name>.cu`` (built on first use), declared as a
-    bf16 conv: (in, resid, out, w, bias, B, is_conv1, stream)."""
+    bf16 conv: (in, resid, out, w, bias, B, is_conv1, stream). Resolved once."""
     fn = getattr(build.load(name), symbol)
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 5 + [i] * 2 + [p]
-        fn.restype = i
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 5 + [i] * 2 + [p]
+    fn.restype = i
     return fn
 
 
-def launch_bf16_conv(wrapper, fn, h, resid, out, w_layer, bias_layer) -> None:
-    """One conv launch, counted in ``wrapper.launches``."""
-    rc = fn(h.data_ptr(), None if resid is None else resid.data_ptr(), out.data_ptr(),
-            w_layer.data_ptr(), bias_layer.data_ptr(), h.shape[0], int(resid is not None),
-            torch.cuda.current_stream(h.device).cuda_stream)
+def launch_bf16_conv(wrapper, fn, stream: int, batch: int, h: int, resid: Optional[int],
+                     out: int, w_layer: int, bias_layer: int) -> None:
+    """One conv launch on ``stream`` from data pointers (``resid`` None for
+    the first conv of a block), counted in ``wrapper.launches``."""
+    rc = fn(h, resid, out, w_layer, bias_layer, batch, int(resid is not None), stream)
     if rc != 0:
-        raise RuntimeError(f"{wrapper.__name__} conv kernel failed: CUDA error {rc}")
+        what = (f"CUDA error {rc}" if rc > 0
+                else f"tensor-map encoding failed, CUresult {-rc}")
+        raise RuntimeError(f"{wrapper.__name__} conv kernel failed: {what}")
     wrapper.launches += 1
 
 
 def launch_bf16_trunk(wrapper, fn, x: torch.Tensor, w: torch.Tensor,
                       bias: torch.Tensor) -> torch.Tensor:
     """The launch sequence the bf16 trunk kernels share: one launch per
-    conv, the second conv of a block updating the block's output in place."""
+    conv, the second conv of a block updating the block's output in place.
+    The stream and every pointer are taken before the first launch."""
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
         y = torch.empty_like(x)
         out = torch.empty_like(x)
-        for i in range(w.shape[0] // 2):
-            h = x if i == 0 else out  # the block's input; conv 1 updates out in place
-            launch_bf16_conv(wrapper, fn, h, None, y, w[2 * i], bias[2 * i])
-            launch_bf16_conv(wrapper, fn, y, h, out, w[2 * i + 1], bias[2 * i + 1])
+        batch, xp, yp, op = x.shape[0], x.data_ptr(), y.data_ptr(), out.data_ptr()
+        w0, w_step = w.data_ptr(), w[0].numel() * w.element_size()
+        b0, b_step = bias.data_ptr(), bias.shape[1] * bias.element_size()
+        for i in range(0, w.shape[0], 2):
+            h = xp if i == 0 else op  # the block's input; conv 1 updates out in place
+            launch_bf16_conv(wrapper, fn, stream, batch, h, None, yp, w0 + i * w_step,
+                             b0 + i * b_step)
+            launch_bf16_conv(wrapper, fn, stream, batch, yp, h, op, w0 + (i + 1) * w_step,
+                             b0 + (i + 1) * b_step)
     return out
 
 
@@ -143,7 +153,9 @@ def launch_bf16_one_conv(wrapper, fn, h, w, bias, resid) -> torch.Tensor:
         raise ValueError("resid must be a contiguous tensor like h")
     with torch.cuda.device(h.device):
         out = torch.empty_like(h)
-        launch_bf16_conv(wrapper, fn, h, resid, out, w, bias)
+        launch_bf16_conv(wrapper, fn, torch.cuda.current_stream().cuda_stream, h.shape[0],
+                         h.data_ptr(), None if resid is None else resid.data_ptr(),
+                         out.data_ptr(), w.data_ptr(), bias.data_ptr())
     return out
 
 

@@ -10,7 +10,10 @@ Each conv takes one (M, C) @ (C, 9C) product of the unshifted input with
 all nine taps' columns, f32-accumulated and **rounded to bf16**, then adds
 tap k's columns at the output position shifted by ``OFFSETS[k]``: in f32,
 from the bias, in ``OFFSETS`` order. That rounding is what sets it apart
-from ``matmul9``, whose taps are never rounded.
+from ``matmul9``, whose taps are never rounded. The CUDA kernel shifts the
+input instead, as ``matmul9``'s does: rounding is elementwise and the shift
+only moves rows, so ``bias + sum_k bf16(shift_k(h) @ w_k)`` is the same
+function (``tests/test_torch_trunk_variants.py`` holds the identity).
 
 :func:`trunk_wide` launches the kernel for a CUDA tensor and uses
 :func:`trunk_wide_plain` only for a tensor on the CPU. The nine f32 adds are

@@ -124,7 +124,7 @@ def fused_m9():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [1024, 24, 3])
+@pytest.mark.parametrize("batch", [1024, 267, 24, 3, 1])
 def test_matmul9_convs_match_plain(fused_m9, batch):
     x = torch.from_numpy(np.random.default_rng(batch).integers(0, 2, (batch, 8, 8, 3))
                          .astype(np.float32)).cuda()
@@ -304,7 +304,7 @@ def fused_wide():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [1024, 24, 3])
+@pytest.mark.parametrize("batch", [1024, 267, 24, 3, 1])
 def test_wide_convs_match_plain(fused_wide, batch):
     x = torch.from_numpy(np.random.default_rng(batch).integers(0, 2, (batch, 8, 8, 3))
                          .astype(np.float32)).cuda()

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from othello_reinforcement_learning_test_tpu.models import quantized as jq
 from othello_reinforcement_learning_test_tpu.models.pallas_resnet import (
@@ -34,7 +35,7 @@ from othello_reinforcement_learning_test_tpu.models.pallas_resnet import (
     fused_trunk_wide,
 )
 from othello_reinforcement_learning_test_tpu.models.resnet import OthelloResNet as JaxResNet
-from othello_reinforcement_learning_test_tpu_torch.kernels import build
+from othello_reinforcement_learning_test_tpu_torch.kernels import build, conv_stages
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dxcat import (
     trunk_int8_dxcat,
     trunk_int8_dxcat_plain,
@@ -52,12 +53,14 @@ from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_patch impo
     trunk_int8_patch_plain,
 )
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_matmul9 import (
+    OFFSETS,
     conv3x3,
     sum_error_bound,
 )
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_wide import (
     conv_wide,
     conv_wide_plain,
+    hwio,
     shifted_sum,
     tap_ulp_bound,
     trunk_wide,
@@ -256,6 +259,54 @@ def test_wide_rounds_each_tap_to_bf16():
     # each rounding moves a product by at most half an ulp; the f32
     # summation noise of the two sums comes on top
     assert bool((diff <= tap_ulp_bound(h, w[0]) / 2 + sum_error_bound(h, w9[0], b[0])).all())
+
+
+def input_shifted_sum(h: torch.Tensor, w9: torch.Tensor, bias: torch.Tensor,
+                      rounded: bool) -> torch.Tensor:
+    """``bias + sum_k T(shift_k(h) @ w9_k)`` in f32, in ``OFFSETS`` order:
+    the sum the CUDA conv body takes for both bf16 trunks, the shift on the
+    input. T rounds each tap's product to bf16 (PyTorch's bf16 product: f32
+    accumulation, one rounding) when ``rounded``, else keeps it in f32."""
+    B, S, _, C = h.shape
+    hp = F.pad(h, (0, 0, 1, 1, 1, 1))
+    acc = bias.expand(B * S * S, C)
+    for dy, dx in OFFSETS:
+        shifted = hp[:, 1 + dy:1 + dy + S, 1 + dx:1 + dx + S, :].reshape(-1, C)
+        wk = w9[1 + dy, 1 + dx]
+        z = (shifted @ wk).float() if rounded else shifted.float() @ wk.float()
+        acc = acc + z
+    return acc.reshape(B, S, S, C)
+
+
+@pytest.mark.parametrize("channels,batch", [(128, 16), (CHANNELS, 64)])
+def test_wide_conv_is_the_input_shifted_rounded_sum(channels, batch):
+    """The identity the CUDA ``wide`` kernel relies on: rounding is
+    elementwise and the shift only moves rows, so shifting the input and
+    rounding each tap's product gives the wide conv (the Pallas kernel's
+    rounded products shifted at the output) bit for bit; without the
+    rounding the same sum is ``matmul9``'s conv, so one conv body serves
+    both."""
+    variables = init_numpy_variables(NUM_BLOCKS, channels, seed=3)
+    w, b = fold_block_params_wide(port_model(variables, num_filters=channels))
+    rng = np.random.default_rng(batch)
+    h = np.abs(rng.standard_normal((batch, 8, 8, channels))) * rng.random((batch, 1, 1, 1)) * 2
+    h = torch.from_numpy(h.astype(np.float32)).to(torch.bfloat16)
+    for layer in range(2):
+        w9 = hwio(w[layer])
+        assert torch.equal(input_shifted_sum(h, w9, b[layer], rounded=True),
+                           shifted_sum(wide_taps(h, w[layer]), b[layer]))
+        assert torch.equal(input_shifted_sum(h, w9, b[layer], rounded=False),
+                           conv3x3(h, w9, b[layer]))
+
+
+@pytest.mark.parametrize("variant", list(conv_stages.VARIANTS))
+def test_conv_stage_edits_apply_to_the_conv_body(variant):
+    """``kernels/conv_stages.py`` times the bf16 conv body with stages taken
+    out by text edits of its header: each edit still applies exactly once,
+    and only ``full`` leaves the header as it is."""
+    text = (build.CSRC_DIR / conv_stages.HEADER).read_text()
+    edited = conv_stages.variant_header(text, conv_stages.VARIANTS[variant])
+    assert (edited == text) == (variant == "full")
 
 
 def test_every_kernel_source_is_registered():
