@@ -13,12 +13,15 @@ each as they finish:
                  ``trunk_int8_flat``, ``trunk_int8_dxcat``) built from
                  ``csrc/`` with nvcc, in parallel; ptxas registers and
                  shared memory; for ``trunk_matmul9`` and ``trunk_wide``
-                 their HGMMA (wgmma) count from ``cuobjdump -sass``, which
-                 must not be 0;
+                 their HGMMA (bf16 wgmma) count from ``cuobjdump -sass``,
+                 for ``trunk_int8_dx3`` and ``trunk_int8`` their IGMMA
+                 (integer wgmma) count; none may be 0;
 3. kernel_check  the ``int8_dx3`` trunk kernel against its plain PyTorch
-                 version on the card, at B=1024 (bg 64), B=24 (bg 8) and
-                 B=3 (bg 1), on
-                 stem outputs of real positions; 10x128 weights from a
+                 version on the card, at B=1024 (bg 64), B=1040 (bg 16,
+                 more games than two a CTA), B=267 (bg 1, an odd count),
+                 B=24 (bg 8), B=3 and B=1 (bg 1), on
+                 stem outputs of real positions (B=1040 repeats the first
+                 16); 10x128 weights from a
                  numpy seed. Tolerance: bit-exact (the plain version repeats
                  the kernel's arithmetic); also FusedInference with the
                  kernel against the same forward with the plain trunk.
@@ -41,8 +44,9 @@ each as they finish:
                  policy is so sharp that the summation order moves it by
                  whole moves: printed, not checked).
                  Then the ``trunk_int8`` kernel, both ``stage_bf16``
-                 settings, against its plain version at B=1024 (bg 16), B=24
-                 (bg 8) and B=3 on the same stem outputs: bit-exact; and
+                 settings, against its plain version at B=1024, 1040 (bg
+                 16), 267, 24 (bg 8), 3 and 1 on the same stem outputs:
+                 bit-exact; and
                  FusedInference(int8) with the kernel against the plain
                  trunk. Then ``trunk_wide`` on both weight sets as
                  ``matmul9`` (batches 1024, 267, 24, 3, 1): the trunk equal bit for
@@ -117,8 +121,11 @@ each as they finish:
                  time, device-busy time and idle share, time by kernel;
 11. timing       the eight trunk kernels and their plain versions at B=1024
                  and, for ``matmul9`` and ``wide``, the same folded tower as
-                 20 cuDNN convolutions and the kernel's device time per
-                 forward from torch.profiler; ``random_step`` and its plain version for one
+                 20 cuDNN convolutions; for those two, ``int8_dx3`` and
+                 ``trunk_int8`` the kernel's device time per forward from
+                 torch.profiler, and for the int8 two also the bytes floor
+                 of their f32-activation structure; ``int8_dxcat`` also at
+                 its gated path's batch (64); ``random_step`` and its plain version for one
                  ply of 4,194,304 games (CUDA events; their outputs must be
                  bit-equal); the bounds, launches per forward.
 
@@ -220,6 +227,11 @@ RANDOM_STEP_OPS = 3 * 8 * 7 * 4
 # random words read, one int32 live written
 RANDOM_STEP_BYTES = 2 * 8 + 2 * 8 + 2 * 4 + 4
 RANDOM_GAMES = 4194304  # bench.py's random-mode batch with the kernel
+# the int8_dx3 and trunk_int8 checks' batches: 1040 gives bg 16 with more
+# games than two a CTA, 267 an odd count
+INT8_BATCHES = (GAMES, 1040, 267, 24, 3, 1)
+# the profiler names of the int8 conv body's launches and the pre-pass
+INT8_DEVICE_NAMES = ("int8_conv_kernel", "prepass_kernel")
 TRUNK_SOURCE = "othello_reinforcement_learning_test_tpu_torch/csrc/trunk_int8_dx3.cu"
 TRUNK_REPLACES = "othello_reinforcement_learning_test_tpu/models/pallas_resnet.py:318"
 PALLAS = "othello_reinforcement_learning_test_tpu/models/pallas_resnet.py"
@@ -348,12 +360,12 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def trunk_device_ms(fn, reps: int = 10) -> dict:
-    """A bf16 trunk's device time per forward under torch.profiler: its
-    ``bf16_conv_kernel`` launches' durations summed (``device_ms``), the span
-    from the first launch's start to the last one's end (``device_span_ms``,
-    which also counts the gaps between launches), and the launches a
-    forward."""
+def trunk_device_ms(fn, names=("bf16_conv_kernel",), reps: int = 10) -> dict:
+    """A trunk's device time per forward under torch.profiler: the durations
+    of its launches (kernels whose name holds one of ``names``) summed
+    (``device_ms``), the span from the first launch's start to the last
+    one's end (``device_span_ms``, which also counts the gaps between
+    launches), and the launches a forward."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -363,7 +375,7 @@ def trunk_device_ms(fn, reps: int = 10) -> dict:
             fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and "bf16_conv_kernel" in e.name]
+               and any(n in e.name for n in names)]
     if not kernels:
         return {"device_ms": "not measured"}
     start = min(e.time_range.start for e in kernels)
@@ -374,18 +386,20 @@ def trunk_device_ms(fn, reps: int = 10) -> dict:
 
 
 def wgmma_evidence(builds: dict) -> None:
-    """The bf16 trunks' HGMMA (wgmma) instruction count from ``cuobjdump
-    -sass``, where the toolkit has it (their ptxas report is in the build
-    lines)."""
+    """The wgmma trunks' wgmma instruction count from ``cuobjdump -sass``,
+    where the toolkit has it (their ptxas report is in the build lines):
+    HGMMA (bf16) in ``trunk_matmul9`` and ``trunk_wide``, IGMMA (s8) in
+    ``trunk_int8_dx3`` and ``trunk_int8``."""
     cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
-    for kname in ("trunk_matmul9", "trunk_wide"):
-        hgmma = "not measured"
+    for kname, op in (("trunk_matmul9", "HGMMA"), ("trunk_wide", "HGMMA"),
+                      ("trunk_int8_dx3", "IGMMA"), ("trunk_int8", "IGMMA")):
+        count = "not measured"
         if cuobjdump.is_file():
             sass = subprocess.run([str(cuobjdump), "-sass", str(builds[kname].path)],
                                   capture_output=True, text=True, timeout=120).stdout
-            hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
-            check(hgmma > 0, f"{kname} issues wgmma (HGMMA in its SASS)")
-        phase("build", kernel=kname, hgmma_instructions=hgmma)
+            count = sum(op in ln for ln in sass.splitlines())
+            check(count > 0, f"{kname} issues wgmma ({op} in its SASS)")
+        phase("build", kernel=kname, **{f"{op.lower()}_instructions": count})
 
 
 def trunk_bound_ms(batch: int, layers: int, channels: int, bf16: bool = False) -> tuple:
@@ -402,6 +416,26 @@ def trunk_bound_ms(batch: int, layers: int, channels: int, bf16: bool = False) -
     nbytes = 2 * rows * channels * 2 + w_bytes
     t_ops, t_bytes = ops / rate * 1e3, nbytes / BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def int8_bytes_floor_ms(batch: int, layers: int, channels: int) -> float:
+    """Least time for one forward of the int8 trunks as they are built: the
+    per-block activation scale spans games that no CTA holds whole, so each
+    conv is its own launch and the activations cross device memory in f32.
+    Bytes: the pre-pass reads the bf16 input and writes it in f32; each
+    block's conv 0 reads x and writes y, its conv 1 reads y and x and writes
+    x (bf16 on the last layer); the int8 weights with f32 scales and biases;
+    each moved once, over the memory rate."""
+    act = batch * 64 * channels * 4  # one f32 activation tensor
+    nbytes = (act // 2 + act) + layers // 2 * 5 * act - act // 2 \
+        + layers * (9 * channels * channels + 2 * channels * 4)
+    return nbytes / BYTES_PER_S * 1e3
+
+
+def batch_of(feats: torch.Tensor, batch: int) -> torch.Tensor:
+    """The first ``batch`` rows of ``feats``, its first rows repeated past its
+    end (B=1040 from 1,024 positions)."""
+    return torch.cat([feats, feats])[:batch]
 
 
 def matmul9_bound(src, w, b, want):
@@ -684,14 +718,14 @@ def train_iteration(dev) -> int:
 
 def check_trunk_int8(model, feats) -> tuple:
     """The trunk_int8 kernel against its plain version, both stage_bf16
-    settings, at B=1024, 24 and 3, bit for bit; returns (largest difference,
-    FusedInference(int8))."""
+    settings, at each of INT8_BATCHES, bit for bit; returns (largest
+    difference, FusedInference(int8))."""
     fused8 = FusedInference(model, variant="int8")
     w, ws, b = fused8.trunk_w, fused8.trunk_scale, fused8.trunk_bias
     err = 0.0
     for stage in (False, True):
-        for batch in (GAMES, 24, 3):
-            h = fused8.stem(feats[:batch])
+        for batch in INT8_BATCHES:
+            h = fused8.stem(batch_of(feats, batch))
             out_k = trunk_int8(h, w, ws, b, stage_bf16=stage)
             out_p = trunk_int8_plain(h, w, ws, b, stage_bf16=stage)
             torch.cuda.synchronize()
@@ -1090,8 +1124,8 @@ def main() -> int:
     feats = engine.features(random_positions(engine, GAMES, 40, rng, dev))
     w, ws, b = fused.trunk_w, fused.trunk_scale, fused.trunk_bias
     max_abs_err = 0.0
-    for batch in (GAMES, 24, 3):
-        h = fused.stem(feats[:batch])
+    for batch in INT8_BATCHES:
+        h = fused.stem(batch_of(feats, batch))
         out_k = trunk_int8_dx3(h, w, ws, b)
         out_p = trunk_int8_dx3_plain(h, w, ws, b)
         torch.cuda.synchronize()
@@ -1205,6 +1239,8 @@ def main() -> int:
     # timing at the main paths' shape (B=1024)
     h = fused.stem(feats)
     kernel_ms = time_ms(lambda: trunk_int8_dx3(h, w, ws, b), reps=20)
+    dx3_device = trunk_device_ms(lambda: trunk_int8_dx3(h, w, ws, b), INT8_DEVICE_NAMES)
+    int8_floor_ms = int8_bytes_floor_ms(GAMES, layers, NUM_FILTERS)
     plain_ms = time_ms(lambda: trunk_int8_dx3_plain(h, w, ws, b), reps=3, warmup=1)
     forward_ms = time_ms(lambda: fused(feats), reps=20)
     bound_ms, bound_by = trunk_bound_ms(GAMES, layers, NUM_FILTERS)
@@ -1220,6 +1256,9 @@ def main() -> int:
     h8, w8, ws8, b8 = fused8.stem(feats), fused8.trunk_w, fused8.trunk_scale, fused8.trunk_bias
     int8_ms = time_ms(lambda: trunk_int8(h8, w8, ws8, b8), reps=20)
     int8_bf16_ms = time_ms(lambda: trunk_int8(h8, w8, ws8, b8, stage_bf16=True), reps=20)
+    int8_device = trunk_device_ms(lambda: trunk_int8(h8, w8, ws8, b8), INT8_DEVICE_NAMES)
+    int8_bf16_device = trunk_device_ms(lambda: trunk_int8(h8, w8, ws8, b8, stage_bf16=True),
+                                       INT8_DEVICE_NAMES)
     int8_plain_ms = time_ms(lambda: trunk_int8_plain(h8, w8, ws8, b8), reps=3, warmup=1)
     int8_bf16_plain_ms = time_ms(lambda: trunk_int8_plain(h8, w8, ws8, b8, stage_bf16=True),
                                  reps=3, warmup=1)
@@ -1258,11 +1297,18 @@ def main() -> int:
                                time_ms(lambda: plain(hv, *args), reps=3, warmup=1),
                                time_ms(lambda: fv(feats), reps=20))
         check(torch.equal(kernel(hv, *args), plain(hv, *args)), f"timed {variant} == plain")
+    # int8_dxcat's main path, the gated iteration, runs at its self-play batch
+    gate_batch = STRONG["self_play"]["num_parallel_games"]
+    fx = variants["int8_dxcat"][1]
+    hx = fx.stem(feats[:gate_batch])
+    dxcat_gate_ms = time_ms(lambda: trunk_int8_dxcat(hx, fx.trunk_w, fx.trunk_scale,
+                                                     fx.trunk_bias, fx.block_games), reps=50)
     boards = random_positions(engine, GAMES, 20, rng, dev)
     phase("profile", what=f"one search at B={GAMES}, {SIMS} simulations, 20 plies in",
           **profile_search(engine, fused, boards))
-    phase("timing", batch=GAMES, kernel_ms=kernel_ms, plain_ms=plain_ms,
-          bound_ms=bound_ms, bound_by=bound_by, fused_forward_ms=forward_ms,
+    phase("timing", kernel="trunk_int8_dx3", batch=GAMES, kernel_ms=kernel_ms, **dx3_device,
+          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+          bytes_floor_ms=int8_floor_ms, fused_forward_ms=forward_ms,
           launches_per_forward=layers, launches_per_ply=launches / plies,
           forward_share_of_selfplay=forward_ms * forwards / 1e3 / seconds)
     phase("timing", kernel="trunk_matmul9", batch=GAMES, kernel_ms=m9_ms, **m9_device,
@@ -1270,9 +1316,10 @@ def main() -> int:
           fused_forward_ms=m9_forward_ms, launches_per_forward=layers,
           library_ms=cudnn_ms, library="cuDNN tower: 20 bf16 F.conv2d calls (channels last) "
           "with ReLU and the residual add, not one call")
-    phase("timing", kernel="trunk_int8", batch=GAMES, kernel_ms=int8_ms,
-          kernel_bf16_ms=int8_bf16_ms, plain_ms=int8_plain_ms,
-          plain_bf16_ms=int8_bf16_plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+    phase("timing", kernel="trunk_int8", batch=GAMES, kernel_ms=int8_ms, **int8_device,
+          kernel_bf16_ms=int8_bf16_ms, device_bf16_ms=int8_bf16_device.get("device_ms"),
+          plain_ms=int8_plain_ms, plain_bf16_ms=int8_bf16_plain_ms, bound_ms=bound_ms,
+          bound_by=bound_by, bytes_floor_ms=int8_floor_ms,
           fused_forward_ms=int8_forward_ms, launches_per_forward=layers, library_ms=None)
     phase("timing", kernel="trunk_wide", batch=GAMES, kernel_ms=wide_ms, **wide_device,
           plain_ms=wide_plain_ms, bound_ms=m9_bound_ms, bound_by=m9_bound_by,
@@ -1280,11 +1327,14 @@ def main() -> int:
           library_ms=wide_cudnn_ms, library="the same cuDNN tower as trunk_matmul9's, on "
           "the wide trunk's weights")
     for variant, (k_ms, p_ms, f_ms) in variant_ms.items():
+        at_path = ({"path_batch": gate_batch, "path_batch_kernel_ms": dxcat_gate_ms,
+                    "path_batch_bound_ms": trunk_bound_ms(gate_batch, layers, NUM_FILTERS)[0]}
+                   if variant == "int8_dxcat" else {})
         phase("timing", kernel=INT8_VARIANTS[variant][0].__name__, batch=GAMES,
               block_games=block_size(GAMES, variants[variant][1].block_games), kernel_ms=k_ms,
               plain_ms=p_ms,
               bound_ms=bound_ms, bound_by=bound_by, fused_forward_ms=f_ms,
-              launches_per_forward=layers, library_ms=None)
+              launches_per_forward=layers, library_ms=None, **at_path)
     phase("timing", kernel="random_step", games=RANDOM_GAMES, kernel_ms=step_ms,
           plain_ms=step_plain_ms, bound_ms=step_bound_ms, bound_by=step_bound_by,
           bytes_ms=step_t_bytes, operations_ms=step_t_ops, ops_per_game=RANDOM_STEP_OPS,

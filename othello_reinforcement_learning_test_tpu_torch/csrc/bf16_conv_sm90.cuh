@@ -51,25 +51,22 @@
 // - No split-K and no atomics: every output's summation order is fixed,
 //   whatever B is and whichever CTA computes it.
 //
-// The host side sets the shared-memory attribute and reads the SM count once
-// per device, and encodes each layer's weight map once per pointer (the map
-// holds only an address and shapes), through cudaGetDriverEntryPoint, so
-// the library needs no -lcuda.
+// The host side (sm90_common.cuh) sets the shared-memory attribute and
+// reads the SM count once per device, and encodes each layer's weight map
+// once per pointer (the map holds only an address and shapes).
 
 #pragma once
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
 
-#include <map>
-#include <mutex>
+#include "sm90_common.cuh"
 
 namespace bf16conv {
 // internal linkage: a function-local static of a template with external
 // linkage is one object across every loaded library that instantiates it
 namespace {
+
+using namespace sm90;
 
 constexpr int C = 128;                           // channels in and out
 constexpr int S = 8;                             // board side
@@ -96,50 +93,6 @@ constexpr int SMEM_BYTES = 1024 + W_BYTES + CONSUMERS * (STAGE_BYTES + RES_BYTES
 static_assert(SMEM_BYTES <= 232448, "fits one block's shared memory");
 static_assert(P * EP_STRIDE * 4 <= STAGE_BYTES, "the epilogue's staging fits the tile");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// matrix descriptor: start address, leading and stride byte offsets, layout
-// (0: no swizzle, 1: 128-byte swizzle)
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                         uint64_t layout) {
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
 // A: the game's 64 positions shifted by the tap, K-major without swizzle:
 // core matrices one board row (8 positions x 16 B) apart in M by a padded
 // row (160 B), in K by a channel chunk. B: the tap's [C_in][64 C_out] rows
@@ -152,10 +105,6 @@ __device__ __forceinline__ uint64_t b_desc(uint32_t b_tap, int ks) {
   return desc(b_tap + ks * 16 * NH * 2, 16, 1024, 1);
 }
 
-__device__ __forceinline__ void st_zero16(uint32_t addr) {
-  asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(addr), "r"(0) : "memory");
-}
-
 // Zeroes the halo of a padded tile: the 36 border positions of each chunk,
 // thread t of the warpgroup taking border pieces t, t + 128, ...
 __device__ __forceinline__ void zero_halo(uint32_t tile, int t) {
@@ -165,18 +114,6 @@ __device__ __forceinline__ void zero_halo(uint32_t tile, int t) {
     const int pos = b < 10 ? b : b < 20 ? 80 + b : b < 28 ? (b - 19) * PADW : (b - 27) * PADW + 9;
     st_zero16(tile + (h / 36) * CHUNK_BYTES + pos * 16);
   }
-}
-
-// the warpgroup's own barrier (id 1 + wg; 0 is __syncthreads)
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-}
-
-// keeps the compiler from moving accumulator registers across the
-// asynchronous products
-__device__ __forceinline__ void fence_operands(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 64 f32) = [d if accumulate] + A (64 x 16, K-major) @ B (16 x 64,
@@ -408,24 +345,6 @@ bf16_conv_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16* 
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-constexpr int MAX_DEVICES = 64;
-constexpr size_t MAX_MAPS = 4096;  // cached weight maps before the cache starts over
-
-// What a launch needs besides its arguments, set up once: the encoder
-// cuTensorMapEncodeTiled, per device the SM count (0 until the kernel's attribute is set),
-// the weight maps by pointer.
-struct HostState {
-  std::mutex mu;
-  EncodeTiled encode = nullptr;
-  int sms[MAX_DEVICES] = {};
-  std::map<uintptr_t, CUtensorMap> maps;
-};
-
 // One conv launch. Returns 0, a cudaError_t, or minus a CUresult of the
 // tensor-map encoder.
 template <bool ROUND_TAPS, bool WIDE>
@@ -435,54 +354,18 @@ int launch(const void* in, const void* resid, void* out, const void* w, const vo
   if (B <= 0) return 0;
   if ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(w)) & 15)
     return static_cast<int>(cudaErrorInvalidValue);  // 16-byte loads, TMA
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
   auto kernel = bf16_conv_kernel<ROUND_TAPS, WIDE>;
+  // a box is one tap's 128 input channels x the CTA's 64 output channels:
+  // rows of 128 B, swizzled as wgmma reads them
+  const WeightMap layout = {CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            {WIDE ? 9u * C : C, WIDE ? C : 9u * C},
+                            (WIDE ? 9u * C : C) * 2u,
+                            {NH, C}};
   CUtensorMap wmap;
-  int sms;
-  {
-    std::lock_guard<std::mutex> lock(host.mu);
-    if (!host.encode) {
-      void* fn = nullptr;
-      cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-      e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
-                                           &found);
-#else
-      e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-#endif
-      if (e != cudaSuccess) return static_cast<int>(e);
-      if (found != cudaDriverEntryPointSuccess || !fn)
-        return static_cast<int>(cudaErrorNotSupported);
-      host.encode = reinterpret_cast<EncodeTiled>(fn);
-    }
-    if (!host.sms[dev]) {
-      if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    SMEM_BYTES)) != cudaSuccess ||
-          (e = cudaDeviceGetAttribute(&host.sms[dev], cudaDevAttrMultiProcessorCount, dev)) !=
-              cudaSuccess)
-        return static_cast<int>(e);
-    }
-    sms = host.sms[dev];
-    auto it = host.maps.find(reinterpret_cast<uintptr_t>(w));
-    if (it == host.maps.end()) {
-      if (host.maps.size() >= MAX_MAPS) host.maps.clear();
-      // a box is one tap's 128 input channels x the CTA's 64 output
-      // channels: rows of 128 B, swizzled as wgmma reads them
-      const cuuint64_t dims[2] = {WIDE ? 9u * C : C, WIDE ? C : 9u * C};
-      const cuuint64_t strides[1] = {(WIDE ? 9u * C : C) * 2u};
-      const cuuint32_t box[2] = {NH, C}, ones[2] = {1, 1};
-      CUresult r = host.encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w),
-                               dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-      if (r != CUDA_SUCCESS) return -static_cast<int>(r);
-      it = host.maps.emplace(reinterpret_cast<uintptr_t>(w), wmap).first;
-    }
-    wmap = it->second;
-  }
+  int sms = 0;
+  const int rc = prepare_launch(host, reinterpret_cast<const void*>(kernel), SMEM_BYTES, w,
+                                layout, &wmap, &sms);
+  if (rc != 0) return rc;
   // one CTA per SM (the shared memory): the two channel halves of sms / 2
   // stripes of games
   const int stripes = B < sms / 2 ? B : (sms / 2 > 0 ? sms / 2 : 1);

@@ -1,19 +1,30 @@
-"""Which stage limits the bf16 trunk kernels: time each with a stage taken out.
+"""Which stage limits the trunk kernels: time each with a stage taken out.
 
-    python -m othello_reinforcement_learning_test_tpu_torch.kernels.conv_stages
+    python -m othello_reinforcement_learning_test_tpu_torch.kernels.conv_stages [--body bf16|int8]
 
-Needs a CUDA card and ``nvcc``. Builds variants of the shared conv body
-``csrc/bf16_conv_sm90.cuh`` (``trunk_matmul9`` and ``trunk_wide``), each with
-stages removed by the edits in :data:`STAGE_EDITS`, and times one trunk
-forward of 20 convs at B=1024 (random bf16 activations, 20 layers of random
-weights, the second conv of each block with its residual, as the trunk
-launches them) with CUDA events, each variant twice in alternating order.
-The variants' outputs are wrong by design; only their times are read:
+Needs a CUDA card and ``nvcc``. Builds variants of a shared conv body, each
+with stages removed by text edits of its header, and times one trunk
+forward of 20 convs at B=1024 (20 layers of random weights, the second conv
+of each block with its residual, as the trunk launches them) with CUDA
+events, each variant twice in alternating order. The variants' outputs are
+wrong by design; only their times are read. The bodies (``--body``, both by
+default):
+
+- ``bf16``: ``csrc/bf16_conv_sm90.cuh`` (``trunk_matmul9`` and
+  ``trunk_wide``) on random bf16 activations;
+- ``int8``: ``csrc/int8_conv_sm90.cuh`` (``trunk_int8_dx3``, and
+  ``trunk_int8`` with ``stage_bf16``) on random f32 activations, after the
+  trunk's pre-pass, at their default blocks of 64 and 16 games.
+
+The variants:
 
 - ``full``: the kernel as it is;
-- ``no_loads``: no game after a warpgroup's first is loaded (its tile is
-  reused), so neither the global loads nor the shared stores of the
-  activation pipeline run;
+- ``no_loads``: bf16: no game after a warpgroup's first is loaded (its
+  tile is reused), so neither the global loads nor the shared stores of
+  the activation pipeline run; int8: the producer stages only its first
+  game and quantizes it again for every later game;
+- ``no_quantize`` (int8 only): the loads run, but each float4's first
+  float's bits are written to the tile in place of its four int8 codes;
 - ``no_stores``: the epilogue writes nothing to global memory;
 - ``no_loads_no_stores``: both;
 - ``no_products``: no ``wgmma`` is issued (the fences, commits and waits stay).
@@ -25,10 +36,10 @@ limit. The kernels' own tests are in ``tests/test_torch_cuda.py`` and
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
-from pathlib import Path
 
 from . import build
 
@@ -68,85 +79,190 @@ extern "C" int conv_wide(const void* in, const void* resid, void* out, const voi
 }}
 """
 
+INT8_HEADER = "int8_conv_sm90.cuh"
+NEVER = "0x7fc00001u"  # a NaN's bits that no output has
+INT8_STAGE_EDITS = {
+    "loads": [
+        ("        mbar_wait(sbars + hh * 8, j & 1);", "        if (j == 0) mbar_wait(sbars + hh * 8, 0);"),
+        ("        if (t == 0 && g + step < B) stage_half(", "        if (false) stage_half("),
+    ],
+    "quantize": [
+        ("    w[i] = pack4(quantize1(v[i].x, y, near), quantize1(v[i].y, y, near),\n"
+         "                 quantize1(v[i].z, y, near), quantize1(v[i].w, y, near));",
+         "    w[i] = __float_as_uint(v[i].x);"),
+    ],
+    "stores": [
+        ("        *reinterpret_cast<__nv_bfloat162*>(out_bf16 + off) = "
+         "__floats2bfloat162_rn(z0, z1);",
+         f"        if (__float_as_uint(z0) == {NEVER} && __float_as_uint(z1) == {NEVER})\n"
+         "          *reinterpret_cast<__nv_bfloat162*>(out_bf16 + off) = "
+         "__floats2bfloat162_rn(z0, z1);"),
+        ("        *reinterpret_cast<float2*>(out + off) = make_float2(z0, z1);",
+         f"        if (__float_as_uint(z0) == {NEVER} && __float_as_uint(z1) == {NEVER})\n"
+         "          *reinterpret_cast<float2*>(out + off) = make_float2(z0, z1);"),
+    ],
+    "products": [
+        ("  for (int ks = 0; ks < C / 32; ++ks)\n    wgmma_m64n128k32(d,",
+         "  for (int ks = 0; ks < 0; ++ks)\n    wgmma_m64n128k32(d,"),
+        ("        for (int ks = 0; ks < C / 32; ++ks)\n          wgmma_m64n128k32(acc,",
+         "        for (int ks = 0; ks < 0; ++ks)\n          wgmma_m64n128k32(acc,"),
+    ],
+}
+INT8_VARIANTS = {"full": (), "no_loads": ("loads",), "no_quantize": ("quantize",),
+                 "no_stores": ("stores",), "no_loads_no_stores": ("loads", "stores"),
+                 "no_products": ("products",)}
+INT8_ENTRY = """#include "{header}"
+extern "C" int prepass(const void* x, void* xf, void* amax, int B, int bg, int num_layers,
+                       void* stream) {{
+  return int8conv::prepass(x, xf, amax, B, bg, num_layers, stream);
+}}
+extern "C" int conv(const void* in, const void* resid, void* out, void* out_bf16,
+                    const void* w, const void* wscale, const void* bias, void* amax, int layer,
+                    int num_layers, int B, int bg, int is_conv1, int is_last, int stage_bf16,
+                    void* stream) {{
+  return (stage_bf16 ? int8conv::launch<true> : int8conv::launch<false>)(
+      in, resid, out, out_bf16, w, wscale, bias, amax, layer, num_layers, B, bg, is_conv1,
+      is_last, stream);
+}}
+"""
+# body: (header, its stage edits, its variants, the entry points' source)
+BODIES = {"bf16": (HEADER, STAGE_EDITS, VARIANTS, ENTRY),
+          "int8": (INT8_HEADER, INT8_STAGE_EDITS, INT8_VARIANTS, INT8_ENTRY)}
+BATCH, LAYERS, C = 1024, 20, 128
 
-def variant_header(text: str, stages) -> str:
-    """The header with ``stages`` removed; raises if an edit does not apply
-    exactly once (the header changed under it)."""
+
+def variant_header(text: str, stages, edits=STAGE_EDITS, header: str = HEADER) -> str:
+    """``header``'s text with ``stages`` removed by ``edits``; raises if an
+    edit does not apply exactly once (the header changed under it)."""
     for stage in stages:
-        for old, new in STAGE_EDITS[stage]:
+        for old, new in edits[stage]:
             if text.count(old) != 1:
-                raise ValueError(f"stage edit {stage!r} does not apply to {HEADER}: {old[:60]!r}")
+                raise ValueError(f"stage edit {stage!r} does not apply to {header}: {old[:60]!r}")
             text = text.replace(old, new)
     return text
 
 
-def build_variant(name: str, stages) -> ctypes.CDLL:
+def build_variant(body: str, name: str, stages) -> ctypes.CDLL:
+    header, edits, _, entry = BODIES[body]
     work = build.BUILD_DIR / "conv_stages"
     work.mkdir(parents=True, exist_ok=True)
-    header = f"stages_{name}.cuh"
-    (work / header).write_text(variant_header((build.CSRC_DIR / HEADER).read_text(), stages))
-    src = work / f"stages_{name}.cu"
-    src.write_text(ENTRY.format(header=header))
-    lib = work / f"libstages_{name}.so"
-    proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
-                          capture_output=True, text=True)
+    variant = f"stages_{body}_{name}"
+    (work / f"{variant}.cuh").write_text(
+        variant_header((build.CSRC_DIR / header).read_text(), stages, edits, header))
+    src = work / f"{variant}.cu"
+    src.write_text(entry.format(header=f"{variant}.cuh"))
+    lib = work / f"lib{variant}.so"
+    proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC_DIR),
+                           "-o", str(lib), str(src)], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for variant {name}:\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc failed for {variant}:\n{proc.stdout}{proc.stderr}")
     return ctypes.CDLL(str(lib))
 
 
-def main() -> int:
+def time_ms(forward, reps: int = 20) -> float:
     import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("conv_stages needs a CUDA card")
-    from concurrent.futures import ThreadPoolExecutor
+    for _ in range(3):
+        forward()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        forward()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        libs = dict(zip(VARIANTS, pool.map(lambda kv: build_variant(*kv), VARIANTS.items())))
+
+def bf16_forwards(libs: dict) -> dict:
+    """{(kernel, variant): one trunk forward through that variant's library}."""
+    import torch
+
     gen = torch.Generator(device="cuda").manual_seed(0)
-    batch, layers, C = 1024, 20, 128
-    x = (torch.rand((batch, 8, 8, C), generator=gen, device="cuda") * 2).to(torch.bfloat16)
+    x = (torch.rand((BATCH, 8, 8, C), generator=gen, device="cuda") * 2).to(torch.bfloat16)
     y, out = torch.empty_like(x), torch.empty_like(x)
     w9 = [(torch.randn((3, 3, C, C), generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
-          for _ in range(layers)]
+          for _ in range(LAYERS)]
     weights = {"conv_m9": w9,
                "conv_wide": [w.permute(2, 0, 1, 3).reshape(C, 9 * C).contiguous() for w in w9]}
-    bias = [torch.randn(C, generator=gen, device="cuda") * 0.1 for _ in range(layers)]
+    bias = [torch.randn(C, generator=gen, device="cuda") * 0.1 for _ in range(LAYERS)]
     stream = torch.cuda.current_stream().cuda_stream
 
     def trunk(fn, ws):
-        for i in range(0, layers, 2):
+        for i in range(0, LAYERS, 2):
             h = x if i == 0 else out
             for j, (src, resid, dst) in enumerate(((h, None, y), (y, h, out))):
                 rc = fn(src.data_ptr(), None if resid is None else resid.data_ptr(),
-                        dst.data_ptr(), ws[i + j].data_ptr(), bias[i + j].data_ptr(), batch,
+                        dst.data_ptr(), ws[i + j].data_ptr(), bias[i + j].data_ptr(), BATCH,
                         int(resid is not None), stream)
                 if rc != 0:
                     raise RuntimeError(f"launch failed: {rc}")
 
-    def time_ms(fn, ws, reps=20):
-        for _ in range(3):
-            trunk(fn, ws)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            trunk(fn, ws)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
+    forwards = {}
     for symbol, kernel in (("conv_m9", "trunk_matmul9"), ("conv_wide", "trunk_wide")):
-        times = {name: [] for name in VARIANTS}
-        for order in (list(VARIANTS), list(reversed(VARIANTS))):
-            for name in order:
-                fn = getattr(libs[name], symbol)
-                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-                times[name].append(time_ms(fn, weights[symbol]))
-        for name, ms in times.items():
-            print(json.dumps({"kernel": kernel, "variant": name, "batch": batch,
-                              "ms_per_forward": ms}), flush=True)
+        for name, lib in libs.items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            forwards[kernel, name] = lambda fn=fn, ws=weights[symbol]: trunk(fn, ws)
+    return forwards
+
+
+def int8_forwards(libs: dict) -> dict:
+    """{(kernel, variant): one trunk forward through that variant's library},
+    launched as the int8 wrappers launch it."""
+    import torch
+
+    from .trunk_int8_dx3 import launch_int8_trunk
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.rand((BATCH, 8, 8, C), generator=gen, device="cuda") * 2).to(torch.bfloat16)
+    w = torch.randint(-127, 128, (LAYERS, 9, C, C), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    w_scale = torch.rand((LAYERS, C), generator=gen, device="cuda") * 1e-3
+    bias = torch.randn((LAYERS, C), generator=gen, device="cuda") * 0.1
+
+    class Launches:  # launch_int8_trunk counts its launches here
+        launches = 0
+
+    forwards = {}
+    for kernel, block_games, stage_bf16 in (("trunk_int8_dx3", 64, 0), ("trunk_int8_bf16", 16, 1)):
+        for name, lib in libs.items():
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.prepass.argtypes, lib.prepass.restype = [p, p, p, i, i, i, p], i
+            lib.conv.argtypes, lib.conv.restype = [p] * 8 + [i] * 7 + [p], i
+            forwards[kernel, name] = (
+                lambda lib=lib, bgames=block_games, st=stage_bf16: launch_int8_trunk(
+                    Launches, lib.prepass, lib.conv, x, w, w_scale, bias, bgames, st))
+    return forwards
+
+
+def main(argv=None) -> int:
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--body", choices=sorted(BODIES), action="append",
+                        help="conv body to measure (default: both)")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("conv_stages needs a CUDA card")
+    from concurrent.futures import ThreadPoolExecutor
+
+    bodies = args.body or sorted(BODIES)
+    jobs = [(body, name, stages) for body in bodies for name, stages in BODIES[body][2].items()]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(lambda job: build_variant(*job), jobs))
+    for body in bodies:
+        libs = {name: lib for (b, name, _), lib in zip(jobs, built) if b == body}
+        forwards = bf16_forwards(libs) if body == "bf16" else int8_forwards(libs)
+        variants = list(BODIES[body][2])
+        for kernel in dict.fromkeys(k for k, _ in forwards):
+            times = {name: [] for name in variants}
+            for order in (variants, variants[::-1]):
+                for name in order:
+                    times[name].append(time_ms(forwards[kernel, name]))
+            for name, ms in times.items():
+                print(json.dumps({"kernel": kernel, "variant": name, "batch": BATCH,
+                                  "ms_per_forward": ms}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     return 0

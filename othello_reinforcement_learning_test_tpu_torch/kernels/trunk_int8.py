@@ -5,16 +5,20 @@ Replaces the Pallas TPU kernel ``_trunk_kernel_int8``
 (``othello_reinforcement_learning_test_tpu/models/pallas_resnet.py:149``),
 reached through ``fused_trunk_int8(kernel="out_shift")`` (variant ``int8``)
 and, with ``stage_bf16``, ``kernel="out_shift_bf16"`` (variant
-``int8_bf16``). The kernel is ``csrc/trunk_int8.cu``; its note states the
-bound and the design.
+``int8_bf16``). The kernel is ``csrc/trunk_int8.cu``, one launch of the
+int8 conv body ``csrc/int8_conv_sm90.cuh`` per conv; their notes state the
+bounds and the design. It takes the weights K-major, (L, 9, C_out, C_in)
+with the taps in ``OFFSETS`` order (:func:`kmajor_weights`), as an 8-bit
+wgmma reads them.
 
 The int32 path computes the ``int8_dx3`` function (per-block activation
 scale, per-output-channel weight scale; integer sums are exact in any
-order), so its plain version is the plain ``int8_dx3`` conv on the
-tap-major weights. With ``stage_bf16`` each tap's int32 product is rounded
-to bf16 before an f32 sum from zero in ``OFFSETS`` order, and the plain
-version rounds in the same place: through f32, as XLA converts int32 to bf16
-(above 2^24 that can round twice). :func:`trunk_int8` launches the kernel for
+order), so its plain version is the plain ``int8_dx3`` trunk on the same
+K-major weights, and the kernel is the same conv body's int32 mode. With
+``stage_bf16`` each tap's int32 product is rounded to bf16 before an f32 sum
+from zero in ``OFFSETS`` order, and the plain version rounds in the same
+place: through f32, as XLA converts int32 to bf16 (above 2^24 that can round
+twice). :func:`trunk_int8` launches the kernel for
 a CUDA tensor and uses :func:`trunk_int8_plain` only for a tensor on the
 CPU; the two agree bit for bit.
 """
@@ -24,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from .trunk_int8_dx3 import (block_size, check_int8_args, int8_library, int8_trunk,
-                             launch_int8_trunk)
+                             kmajor_taps, launch_int8_trunk)
 from .trunk_matmul9 import OFFSETS
 
 DEFAULT_BLOCK_GAMES = 16  # the JAX package's FusedInference default for int8
@@ -37,29 +41,37 @@ def tap_major(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(L, C, 9, C).permute(0, 2, 1, 3).reshape(L, 9 * C, C)
 
 
+def kmajor_weights(w: torch.Tensor) -> torch.Tensor:
+    """(L, C, 9C) tap-major int8 weights -> (L, 9, C_out, C_in): the int8
+    kernels' K-major layout, one (C_out, C_in) matrix per tap in
+    :data:`OFFSETS` order, which the ``stage_bf16`` sum keeps."""
+    L, C, _ = w.shape
+    return w.reshape(L, C, 9, C).permute(0, 2, 3, 1).contiguous()
+
+
 def trunk_int8_plain(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
                      bias: torch.Tensor, block_games: int = DEFAULT_BLOCK_GAMES,
                      stage_bf16: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel: bf16 (B, S, S, C) in, bf16 out,
-    any S and C."""
+    any S and C; w as the kernel takes it, (L, 9, C_out, C_in)."""
     bg = block_size(x.shape[0], block_games)
-    return int8_trunk(x.to(torch.float32), tap_major(w), OFFSETS, w_scale, bias, bg,
+    return int8_trunk(x.to(torch.float32), kmajor_taps(w), OFFSETS, w_scale, bias, bg,
                       stage_bf16).to(torch.bfloat16)
 
 
 def trunk_int8(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
                bias: torch.Tensor, block_games: int = DEFAULT_BLOCK_GAMES,
                stage_bf16: bool = False) -> torch.Tensor:
-    """Int8 residual trunk. x: (B, S, S, C) bf16; w: (L, C, 9C) int8
-    tap-major weights (``quantize_trunk``'s layout); w_scale, bias: (L, C)
-    f32. Returns bf16 (B, S, S, C).
+    """Int8 residual trunk. x: (B, S, S, C) bf16; w: (L, 9, C_out, C_in)
+    int8 K-major weights (:func:`kmajor_weights` of ``quantize_trunk``'s
+    layout); w_scale, bias: (L, C) f32. Returns bf16 (B, S, S, C).
 
     On a CUDA tensor this launches the hand-written kernel (one launch per
     conv, each counted in ``trunk_int8.launches``; 8x8 boards and 128
     channels only) or raises; the plain version runs only for a tensor on
     the CPU.
     """
-    check_int8_args(x, w, w_scale, bias, lambda C: (C, 9 * C))
+    check_int8_args(x, w, w_scale, bias, lambda C: (9, C, C))
     if x.device.type == "cpu":
         return trunk_int8_plain(x, w, w_scale, bias, block_games, stage_bf16)
     if x.device.type != "cuda":

@@ -3,7 +3,10 @@
 Replaces the Pallas TPU kernel ``_trunk_kernel_int8_dx3``
 (``othello_reinforcement_learning_test_tpu/models/pallas_resnet.py:318``),
 reached through ``fused_trunk_int8(kernel="dx3")``. The kernel is
-``csrc/trunk_int8_dx3.cu``; its note states the bound and the design.
+``csrc/trunk_int8_dx3.cu``, one launch of the int8 conv body
+``csrc/int8_conv_sm90.cuh`` per conv; their notes state the bounds and the
+design. It takes the weights K-major, (L, 9, C_out, C_in) with the taps in
+``OFFSETS`` order (:func:`dx3_kmajor`), as an 8-bit wgmma reads them.
 
 :func:`trunk_int8_dx3` launches the kernel for a CUDA tensor and uses
 :func:`trunk_int8_dx3_plain` only for a tensor on the CPU. The plain version
@@ -23,12 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .trunk_matmul9 import OFFSETS
 
 DEFAULT_BLOCK_GAMES = 64
-
-# Tap order of the dx3 layout (L, 3, C, 3C): dx-major groups, dy-minor
-# column blocks within a group.
-DX3_OFFSETS = tuple((dy, dx) for dx in (-1, 0, 1) for dy in (-1, 0, 1))
 
 
 def block_size(num_games: int, block_games: int = DEFAULT_BLOCK_GAMES) -> int:
@@ -40,11 +40,20 @@ def block_size(num_games: int, block_games: int = DEFAULT_BLOCK_GAMES) -> int:
     return bg
 
 
-def dx3_tap_weights(w: torch.Tensor) -> torch.Tensor:
-    """(L, 3, C, 3C) dx3 weights -> (L, 9C, C) rows ordered as
-    :data:`DX3_OFFSETS` then C_in."""
+def dx3_kmajor(w: torch.Tensor) -> torch.Tensor:
+    """(L, 3, C, 3C) dx3 weights (dx-major groups, dy-minor column blocks)
+    -> (L, 9, C_out, C_in): the int8 kernels' K-major layout, one
+    (C_out, C_in) matrix per tap in :data:`OFFSETS` order (dy-major)."""
     L, _, C, _ = w.shape
-    return w.reshape(L, 3, C, 3, C).permute(0, 1, 3, 2, 4).reshape(L, 9 * C, C)
+    wt = w.reshape(L, 3, C, 3, C)  # (L, dx, C_in, dy, C_out)
+    return wt.permute(0, 3, 1, 4, 2).reshape(L, 9, C, C).contiguous()
+
+
+def kmajor_taps(w: torch.Tensor) -> torch.Tensor:
+    """(L, 9, C_out, C_in) K-major weights -> (L, 9C, C): rows ordered as
+    the taps, then C_in, as :func:`int8_trunk` takes them."""
+    L, _, C, _ = w.shape
+    return w.transpose(2, 3).reshape(L, 9 * C, C)
 
 
 def div127(x: torch.Tensor) -> torch.Tensor:
@@ -101,9 +110,10 @@ def int8_trunk(h: torch.Tensor, taps: torch.Tensor,
 def trunk_int8_dx3_plain(x: torch.Tensor, w: torch.Tensor,
                          w_scale: torch.Tensor, bias: torch.Tensor,
                          block_games: int = DEFAULT_BLOCK_GAMES) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: bf16 (B, S, S, C) in, bf16 out."""
+    """Plain PyTorch version of the kernel: bf16 (B, S, S, C) in, bf16 out;
+    w as the kernel takes it, (L, 9, C_out, C_in)."""
     bg = block_size(x.shape[0], block_games)
-    return int8_trunk(x.to(torch.float32), dx3_tap_weights(w), DX3_OFFSETS,
+    return int8_trunk(x.to(torch.float32), kmajor_taps(w), OFFSETS,
                       w_scale, bias, bg).to(torch.bfloat16)
 
 
@@ -188,14 +198,15 @@ def launch_int8_trunk(wrapper, prepass, conv, x: torch.Tensor, w: torch.Tensor,
 def trunk_int8_dx3(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
                    bias: torch.Tensor,
                    block_games: int = DEFAULT_BLOCK_GAMES) -> torch.Tensor:
-    """Int8 residual trunk. x: (B, S, S, C) bf16; w: (L, 3, C, 3C) int8 dx3
-    weights; w_scale, bias: (L, C) f32. Returns bf16 (B, S, S, C).
+    """Int8 residual trunk. x: (B, S, S, C) bf16; w: (L, 9, C_out, C_in)
+    int8 K-major weights (:func:`dx3_kmajor` of the dx3 layout); w_scale,
+    bias: (L, C) f32. Returns bf16 (B, S, S, C).
 
     On a CUDA tensor this launches the hand-written kernel (one launch per
     conv, each counted in ``trunk_int8_dx3.launches``) or raises; the plain
     version runs only for a tensor on the CPU.
     """
-    check_int8_args(x, w, w_scale, bias, lambda C: (3, C, 3 * C))
+    check_int8_args(x, w, w_scale, bias, lambda C: (9, C, C))
     if x.device.type == "cpu":
         return trunk_int8_dx3_plain(x, w, w_scale, bias, block_games)
     if x.device.type != "cuda":

@@ -19,12 +19,13 @@ Every variant of the JAX package's ``FusedInference.VARIANTS`` is ported.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 
-from ..kernels.trunk_int8 import tap_major, trunk_int8
-from ..kernels.trunk_int8_dx3 import trunk_int8_dx3
+from ..kernels.trunk_int8 import kmajor_weights, tap_major, trunk_int8
+from ..kernels.trunk_int8_dx3 import dx3_kmajor, trunk_int8_dx3
 from ..kernels.trunk_int8_dxcat import trunk_int8_dxcat
 from ..kernels.trunk_int8_flat import trunk_int8_flat
 from ..kernels.trunk_int8_m9 import trunk_int8_m9
@@ -93,6 +94,12 @@ def dx3_weights(w_int8: torch.Tensor) -> torch.Tensor:
     return wt.permute(0, 3, 1, 2, 4).reshape(L, 3, C, 3 * C).contiguous()
 
 
+def dx3_kmajor_weights(w_int8: torch.Tensor) -> torch.Tensor:
+    """(L, C, 9C) tap-major int8 weights -> the ``int8_dx3`` kernel's
+    (L, 9, C_out, C_in): the JAX package's dx3 layout, relaid out K-major."""
+    return dx3_kmajor(dx3_weights(w_int8))
+
+
 def dxcat_weights(w_int8: torch.Tensor) -> torch.Tensor:
     """(L, C, 9C) tap-major int8 weights -> (L, 3, 3C, C): dy-major groups,
     rows (dx block, C_in)-major to match the lane-concatenated input."""
@@ -101,9 +108,12 @@ def dxcat_weights(w_int8: torch.Tensor) -> torch.Tensor:
     return wt.permute(0, 2, 3, 1, 4).reshape(L, 3, 3 * C, C).contiguous()
 
 
-# the int8 kernels that take the (L, C, 9C) weights relaid out, and how
+# the int8 kernel variants: the trunk, and how it takes the (L, C, 9C)
+# weights relaid out
 INT8_KERNELS = {
-    "int8_dx3": (trunk_int8_dx3, dx3_weights),
+    "int8": (trunk_int8, kmajor_weights),
+    "int8_bf16": (functools.partial(trunk_int8, stage_bf16=True), kmajor_weights),
+    "int8_dx3": (trunk_int8_dx3, dx3_kmajor_weights),
     "int8_m9": (trunk_int8_m9, m9_weights),
     "int8_patch": (trunk_int8_patch, tap_major),
     "int8_flat": (trunk_int8_flat, tap_major),
@@ -128,11 +138,12 @@ class FusedInference:
     - ``matmul9``: bf16 folded weights (L, 3, 3, C, C), f32 biases (L, C);
     - ``wide``: the same weights as (L, C, 9C); each tap's product is
       rounded to bf16 before the shifted f32 sum;
-    - ``int8``, ``int8_bf16``: the quantized trunk in the tap-major
-      (L, C, 9C) layout; ``int8_bf16`` rounds each tap's product to bf16;
+    - ``int8``, ``int8_bf16``, ``int8_dx3``: the quantized trunk in the
+      K-major (L, 9, C_out, C_in) layout of the int8 conv body;
+      ``int8_bf16`` rounds each tap's product to bf16;
     - ``int8_m9`` (L, 9, C, C), ``int8_patch`` and ``int8_flat`` (L, 9C, C),
-      ``int8_dx3`` (L, 3, C, 3C), ``int8_dxcat`` (L, 3, 3C, C): the same
-      quantized function, each in its kernel's layout.
+      ``int8_dxcat`` (L, 3, 3C, C): the same quantized function, each in its
+      kernel's layout.
     """
 
     def __init__(self, model: OthelloResNet, variant: str = "int8_dx3",
@@ -189,10 +200,8 @@ class FusedInference:
         if v == "int8_xla":
             from .quantized import plain_int8_trunk
             return plain_int8_trunk(h.to(torch.float32), self.qt).to(torch.bfloat16)
-        args = (h, self.trunk_w, self.trunk_scale, self.trunk_bias, self.block_games)
-        if v in INT8_KERNELS:
-            return INT8_KERNELS[v][0](*args)
-        return trunk_int8(*args, stage_bf16=v == "int8_bf16")
+        return INT8_KERNELS[v][0](h, self.trunk_w, self.trunk_scale, self.trunk_bias,
+                                  self.block_games)
 
     @torch.no_grad()
     def heads(self, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

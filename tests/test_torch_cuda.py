@@ -92,7 +92,7 @@ def fused():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [1024, 24, 3])
+@pytest.mark.parametrize("batch", [1024, 1040, 267, 24, 3, 1])  # 1040: bg 16, more games than CTAs
 def test_trunk_kernel_matches_plain(fused, batch):
     rng = np.random.default_rng(batch)
     h = np.abs(rng.standard_normal((batch, 8, 8, 128))) * rng.random((batch, 1, 1, 1)) * 2
@@ -196,7 +196,7 @@ def fused_int8():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("stage_bf16", [False, True])
-@pytest.mark.parametrize("batch", [1024, 24, 3])
+@pytest.mark.parametrize("batch", [1024, 1040, 267, 24, 3, 1])
 def test_trunk_int8_matches_plain(fused_int8, batch, stage_bf16):
     rng = np.random.default_rng(batch)
     h = np.abs(rng.standard_normal((batch, 8, 8, 128))) * rng.random((batch, 1, 1, 1)) * 2

@@ -27,6 +27,7 @@ from othello_reinforcement_learning_test_tpu.models.pallas_resnet import (
 from othello_reinforcement_learning_test_tpu.models.resnet import OthelloResNet as JaxResNet
 from othello_reinforcement_learning_test_tpu_torch.kernels import build
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dx3 import (
+    dx3_kmajor,
     trunk_int8_dx3,
     trunk_int8_dx3_plain,
 )
@@ -67,7 +68,7 @@ def test_plain_trunk_matches_pallas_interpret(num_blocks, batch):
                            block_games=64, interpret=True, kernel="dx3")
     ref = np.asarray(ref.astype(jnp.float32))
     x = torch.from_numpy(np.array(hb.astype(jnp.float32))).to(torch.bfloat16)
-    w = dx3_weights(torch.from_numpy(np.array(jqt.w_int8)))
+    w = dx3_kmajor(dx3_weights(torch.from_numpy(np.array(jqt.w_int8))))
     out = trunk_int8_dx3_plain(x, w, torch.from_numpy(np.array(jqt.w_scale)),
                                torch.from_numpy(np.array(jqt.bias)), 64)
     out = out.float().numpy()
@@ -133,7 +134,7 @@ def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing():
 def test_wrapper_rejects_bad_arguments(bad):
     L, C = 2, 128
     x = torch.zeros((2, 8, 8, C), dtype=torch.bfloat16)
-    w = torch.zeros((L, 3, C, 3 * C), dtype=torch.int8)
+    w = torch.zeros((L, 9, C, C), dtype=torch.int8)
     s = torch.ones((L, C))
     b = torch.zeros((L, C))
     if bad == "x_dtype":

@@ -17,6 +17,11 @@ Tolerances, each with its reason:
   plain trunk equals the interpreted kernel bit for bit;
 - the int32-to-bf16 conversion: bit-exact to XLA's, which rounds through
   f32 (twice, above 2^24);
+- the K-major weights of the int8 conv body, from the tap-major and the dx3
+  layouts: equal, per tap and channel, to the JAX package's tap-major
+  weights; the conv body's order of the sums (int32 in any tap order; with
+  ``stage_bf16`` each tap from zero, rounded, added in f32 in the K-major
+  order) equal bit for bit to the plain version;
 - ``FusedInference`` vs the JAX ``FusedInference`` of the same variant:
   probabilities atol 0.02 and values atol 0.04, the repo's bar between int8
   trunks (``tests/test_torch_trunk.py``).
@@ -37,11 +42,13 @@ from othello_reinforcement_learning_test_tpu.models.pallas_resnet import (
 from othello_reinforcement_learning_test_tpu.models.resnet import OthelloResNet as JaxResNet
 from othello_reinforcement_learning_test_tpu_torch.kernels import trunk_int8_dx3 as dx3
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8 import (
+    kmajor_weights,
     tap_major,
     trunk_int8,
     trunk_int8_plain,
 )
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_matmul9 import OFFSETS
+from othello_reinforcement_learning_test_tpu_torch.models.fused_resnet import dx3_weights
 from othello_reinforcement_learning_test_tpu_torch.models.convert import (
     from_jax_variables,
     init_numpy_variables,
@@ -66,8 +73,11 @@ def case(batch, seed=3):
 
 
 def torch_args(jqt, hb):
+    """(x, the kernel's K-major weights, w_scale, bias) from the JAX
+    quantized trunk."""
     x = torch.from_numpy(np.array(hb.astype(jnp.float32))).to(torch.bfloat16)
-    return x, *(torch.from_numpy(np.array(a)) for a in (jqt.w_int8, jqt.w_scale, jqt.bias))
+    w = kmajor_weights(torch.from_numpy(np.array(jqt.w_int8)))
+    return x, w, *(torch.from_numpy(np.array(a)) for a in (jqt.w_scale, jqt.bias))
 
 
 def pallas(jqt, hb, stage_bf16):
@@ -183,3 +193,130 @@ def test_fused_inference_matches_jax(variant):
     assert lp_t.shape == (batch, 65) and v_t.shape == (batch, 1)
     np.testing.assert_allclose(np.exp(lp_t.numpy()), np.exp(np.asarray(lp_j)), atol=0.02, rtol=0)
     np.testing.assert_allclose(v_t.numpy(), np.asarray(v_j), atol=0.04, rtol=0)
+
+
+def port_model(variables):
+    m = OthelloResNet(NUM_BLOCKS, CHANNELS)
+    m.load_state_dict(from_jax_variables(variables), strict=True)
+    return m.eval()
+
+
+def block_size(batch):
+    return dx3.block_size(batch, 16)
+
+
+@pytest.mark.parametrize("layout", ["int8", "int8_dx3"])
+def test_kmajor_relayout_matches_jax_tap_major(layout):
+    """The int8 conv body's (L, 9, C_out, C_in) weights: tap k's (C_out,
+    C_in) matrix is the transpose of columns [k*C, (k+1)*C) of the JAX
+    package's (L, C, 9C) weights, for the ``int8`` relayout of
+    ``quantize_trunk``'s layout and for the ``int8_dx3`` one of the dx3
+    layout (``fused_trunk_int8(kernel="dx3")``'s reshape); taps in
+    ``OFFSETS`` order."""
+    variables = init_numpy_variables(NUM_BLOCKS, CHANNELS, seed=7)
+    jqt = jq.quantize_trunk(variables, NUM_BLOCKS)
+    want = np.array(jqt.w_int8)
+    L, C = 2 * NUM_BLOCKS, CHANNELS
+    if layout == "int8":
+        w = kmajor_weights(torch.from_numpy(want))
+    else:
+        jdx3 = jqt.w_int8.reshape(L, C, 3, 3, C).transpose(0, 3, 1, 2, 4).reshape(L, 3, C, 3 * C)
+        assert torch.equal(dx3_weights(torch.from_numpy(want)), torch.from_numpy(np.array(jdx3)))
+        w = dx3.dx3_kmajor(torch.from_numpy(np.array(jdx3)))
+    fused = FusedInference(port_model(variables), variant=layout)
+    assert torch.equal(fused.trunk_w, w) and w.is_contiguous()
+    assert w.dtype == torch.int8 and w.shape == (L, 9, C, C)
+    for k in range(9):
+        np.testing.assert_array_equal(w[:, k].numpy(), want[:, :, k * C:(k + 1) * C]
+                                      .transpose(0, 2, 1))
+    assert OFFSETS[0] == (-1, -1) and OFFSETS[1] == (-1, 0)  # dy-major, as _OFFSETS
+
+
+def kernel_order_trunk(x, w, w_scale, bias, bg, stage_bf16, taps=range(9)):
+    """The trunk as the int8 conv body sums it: each tap's product of the
+    shifted int8 codes with the K-major matrix ``w[layer, k]`` in int64,
+    over ``taps``; int32 mode sums them exactly, ``stage_bf16`` takes each
+    from zero, rounds it through f32 to bf16 and adds it in f32; then
+    ``s_act * w_scale`` first, the product and the bias rounded apart, the
+    residual and ReLU in f32."""
+    h = x.to(torch.float32)
+    B, S, _, C = h.shape
+    for layer in range(w.shape[0]):
+        s_act = dx3.div127(h.abs().reshape(B // bg, -1).amax(dim=1).clamp_min(1e-8))
+        s_rows = s_act.repeat_interleave(bg)
+        q = torch.round(h / s_rows[:, None, None, None]).clamp(-127, 127).to(torch.int64)
+        qp = F.pad(q, (0, 0, 1, 1, 1, 1))
+        acc = torch.zeros((B * S * S, C), dtype=torch.float32 if stage_bf16 else torch.int64)
+        for k in taps:
+            dy, dx = OFFSETS[k]
+            part = qp[:, 1 + dy:1 + dy + S, 1 + dx:1 + dx + S, :].reshape(-1, C) \
+                @ w[layer, k].to(torch.int64).T
+            if stage_bf16:
+                part = part.to(torch.float32).to(torch.bfloat16).to(torch.float32)
+            acc = acc + part
+        scale = s_rows[:, None] * w_scale[layer][None, :]
+        z = acc.to(torch.float32).reshape(B, S, S, C) * scale[:, None, None, :] + bias[layer]
+        if layer % 2 == 0:
+            block_in, h = h, torch.relu(z)
+        else:
+            h = torch.relu(block_in + z)
+    return h.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("batch", [32, 24])
+def test_bf16_staging_in_kmajor_tap_order_is_the_plain_version(batch):
+    """``int8_bf16``: each tap's product taken from zero, rounded through f32
+    to bf16 and added in f32 in the K-major layout's tap order, as the conv
+    body sums it, is the plain version bit for bit."""
+    jqt, hb = case(batch)
+    x, w, s, b = torch_args(jqt, hb)
+    plain = trunk_int8_plain(x, w, s, b, 16, stage_bf16=True)
+    assert torch.equal(kernel_order_trunk(x, w, s, b, block_size(batch), True), plain)
+    assert torch.equal(trunk_int8(x, w, s, b, 16, stage_bf16=True), plain)
+
+
+@pytest.mark.parametrize("order", ["reversed", "dx_major", "shuffled"])
+def test_int32_sum_is_the_same_in_any_tap_order(order):
+    """The int32 mode (``int8``, ``int8_dx3``) sums exact integers: any order
+    of the nine taps gives the plain version bit for bit."""
+    jqt, hb = case(32)
+    x, w, s, b = torch_args(jqt, hb)
+    taps = {"reversed": range(8, -1, -1),
+            "dx_major": [3 * (dy + 1) + dx + 1 for dx in (-1, 0, 1) for dy in (-1, 0, 1)],
+            "shuffled": np.random.default_rng(0).permutation(9).tolist()}[order]
+    got = kernel_order_trunk(x, w, s, b, 16, False, taps)
+    assert torch.equal(got, trunk_int8_plain(x, w, s, b, 16))
+    assert torch.equal(got, dx3.trunk_int8_dx3_plain(x, w, s, b, 16))
+
+
+
+def test_reciprocal_quantisation_rounds_as_the_division():
+    """The int8 conv body quantizes with the block's reciprocal
+    (``csrc/int8_conv_sm90.cuh::quantize_into``): clip(h * (1 / s)),
+    rounded by adding 1.5 * 2^23, and divided exactly where a value lies
+    within 2^-14 of a half-integer (the kernel then divides all of that
+    thread's values). Emulated here step for step in float32, it gives the
+    plain version's ``round(h / s).clamp(-127, 127)`` on random values,
+    zeros and quotients one ulp from a half-integer, at scales from 1e-8 to
+    1e4."""
+    f32 = np.float32
+    magic, near_half = f32(12582912.0), f32(0.5) - f32(1.0 / 16384)
+    rng = np.random.default_rng(0)
+    for amax in (1e-8, 3e-6, 0.37, 1.0, 2.5, 77.0, 1e4):
+        s = (torch.tensor([max(amax, 1e-8)], dtype=torch.float32) / 127).numpy()[0]
+        y = f32(1) / s
+        h = rng.random(200_000, dtype=np.float32) * f32(amax)
+        h[::5] = 0
+        halves = (rng.integers(-127, 127, 20_000).astype(f32) + f32(0.5)) * s
+        up = rng.random(halves.size) < 0.5
+        halves = np.nextafter(halves.astype(f32), np.where(up, np.inf, -np.inf).astype(f32))
+        h = np.concatenate([h, halves.astype(f32), -h[:1000]])
+        want = torch.round(torch.from_numpy(h) / torch.tensor(s)).clamp(-127, 127).numpy()
+        q = np.clip((h * y).astype(f32), -127, 127).astype(f32)
+        r = (q + magic).astype(f32)
+        near = np.abs((q - (r - magic).astype(f32)).astype(f32)) > near_half
+        exact = np.clip((h / s).astype(f32), -127, 127).astype(f32)
+        r = np.where(near, (exact + magic).astype(f32), r)
+        got = (r.view(np.uint32) & 0xFF).astype(np.uint8).view(np.int8).astype(f32)
+        np.testing.assert_array_equal(got, want)
+        assert near.mean() < 0.2  # the exact division stays the exception

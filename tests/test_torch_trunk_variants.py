@@ -15,6 +15,8 @@ Tolerances, each with its reason:
   (``test_fused_dequant_witness`` there); on the ``wide`` path both sum the
   same bf16 products in the same f32 order;
 - weight layouts: equal;
+- the stage edits of ``kernels/conv_stages.py``: each applies exactly once
+  to its conv body's header;
 - ``FusedInference`` vs the JAX ``FusedInference(variant, interpret=True)``:
   probabilities atol 0.02 and values atol 0.04 for the int8 variants (the
   repo's bar between int8 trunks), 0.03 and 0.05 for ``wide`` (the JAX
@@ -306,6 +308,17 @@ def test_conv_stage_edits_apply_to_the_conv_body(variant):
     and only ``full`` leaves the header as it is."""
     text = (build.CSRC_DIR / conv_stages.HEADER).read_text()
     edited = conv_stages.variant_header(text, conv_stages.VARIANTS[variant])
+    assert (edited == text) == (variant == "full")
+
+
+@pytest.mark.parametrize("variant", list(conv_stages.INT8_VARIANTS))
+def test_conv_stage_edits_apply_to_the_int8_conv_body(variant):
+    """The same for the int8 conv body: each edit of ``INT8_STAGE_EDITS``
+    applies exactly once to its header, and only ``full`` leaves it as it
+    is."""
+    text = (build.CSRC_DIR / conv_stages.INT8_HEADER).read_text()
+    edited = conv_stages.variant_header(text, conv_stages.INT8_VARIANTS[variant],
+                                        conv_stages.INT8_STAGE_EDITS, conv_stages.INT8_HEADER)
     assert (edited == text) == (variant == "full")
 
 
