@@ -14,8 +14,9 @@ each as they finish:
                  ``csrc/`` with nvcc, in parallel; ptxas registers and
                  shared memory; for ``trunk_matmul9`` and ``trunk_wide``
                  their HGMMA (bf16 wgmma) count from ``cuobjdump -sass``,
-                 for ``trunk_int8_dx3`` and ``trunk_int8`` their IGMMA
-                 (integer wgmma) count; none may be 0;
+                 for ``trunk_int8_dx3``, ``trunk_int8``, ``trunk_int8_patch``
+                 and ``trunk_int8_dxcat`` their IGMMA (integer wgmma) count;
+                 none may be 0;
 3. kernel_check  the ``int8_dx3`` trunk kernel against its plain PyTorch
                  version on the card, at B=1024 (bg 64), B=1040 (bg 16,
                  more games than two a CTA), B=267 (bg 1, an odd count),
@@ -58,9 +59,16 @@ each as they finish:
                  flax-init weights. Then ``trunk_int8_m9``,
                  ``trunk_int8_patch``, ``trunk_int8_flat`` and
                  ``trunk_int8_dxcat`` against their plain version (the plain
-                 ``int8_dx3`` trunk on tap-major weights) at B=1024 (bg 32;
-                 ``dxcat`` bg 64), 24 (bg 8) and 3 (bg 1): bit-exact, and
-                 FusedInference with each against the plain trunk: equal. Then ``random_step`` against ``random_step_plain``
+                 ``int8_dx3`` trunk on the kernel's weights) bit for bit:
+                 ``m9`` and ``flat`` at B=1024 (bg 32), 24 (bg 8) and 3 (bg
+                 1); ``patch`` at B=1024, 1040, 267, 24, 3 and 1;
+                 ``dxcat`` (the whole trunk in one launch) at its gated
+                 path's B=64 (bg 64) and 40 (bg 8) and at 1024, 1040, 267,
+                 24, 3 and 1, then 200 forwards each at B=64 and 40, every
+                 one equal to the plain output (a missing fence across its
+                 grid barrier would flip a rare int8 code); launches 20 a
+                 forward (``dxcat``: 1); FusedInference with each against
+                 the plain trunk: equal. Then ``random_step`` against ``random_step_plain``
                  on the card, fed the same words, every ply of 4,096 games
                  to their end for sizes 8, 6 and 4 under both rule sets,
                  then of the bench's 4,194,304 games at 8x8: bit-exact
@@ -103,7 +111,7 @@ each as they finish:
                  ``int8_dxcat``, the ``configs/strong_8x8.yaml`` recipe cut
                  to one batch of 64 games of 25 simulations, 4 SGD steps and
                  gating and a checkpoint at iteration 1: ``trunk_int8_dxcat``
-                 launched 20 x (self-play + gate-match forwards), 40 gate
+                 launched once a forward (self-play + gate match), 40 gate
                  games, the decision logged and written as its two scalars,
                  best equal to the candidate if adopted and unchanged if
                  not, the checkpoint holding best and reloading it exactly;
@@ -116,7 +124,8 @@ each as they finish:
     benchmark_model  the port's ``benchmark_model --fused`` in process over
                  all ten variants (default batches 1-4096, chain 16,
                  2 repeats): each table printed, every row at B >= 256 a
-                 number, each kernel launched 20 times a fused forward;
+                 number, each kernel launched 20 times a fused forward
+                 (``trunk_int8_dxcat`` once);
 10. profile      one ply's search at B=1024 under torch.profiler: wall
                  time, device-busy time and idle share, time by kernel;
 11. timing       the eight trunk kernels and their plain versions at B=1024
@@ -124,8 +133,10 @@ each as they finish:
                  20 cuDNN convolutions; for those two, ``int8_dx3`` and
                  ``trunk_int8`` the kernel's device time per forward from
                  torch.profiler, and for the int8 two also the bytes floor
-                 of their f32-activation structure; ``int8_dxcat`` also at
-                 its gated path's batch (64); ``random_step`` and its plain version for one
+                 of their f32-activation structure (also ``int8_patch``);
+                 ``int8_dxcat`` also at its gated path's batches, 64 and 40,
+                 wall and device time at 64, 40 and 1024, and ``int8_dx3``
+                 at B=64; ``random_step`` and its plain version for one
                  ply of 4,194,304 games (CUDA events; their outputs must be
                  bit-equal); the bounds, launches per forward.
 
@@ -160,6 +171,7 @@ from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dx3 import
     trunk_int8_dx3_plain,
 )
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dxcat import (
+    LAUNCHES_PER_FORWARD as DXCAT_LAUNCHES_PER_FORWARD,
     trunk_int8_dxcat,
     trunk_int8_dxcat_plain,
 )
@@ -230,8 +242,13 @@ RANDOM_GAMES = 4194304  # bench.py's random-mode batch with the kernel
 # the int8_dx3 and trunk_int8 checks' batches: 1040 gives bg 16 with more
 # games than two a CTA, 267 an odd count
 INT8_BATCHES = (GAMES, 1040, 267, 24, 3, 1)
-# the profiler names of the int8 conv body's launches and the pre-pass
+# the profiler names of the int8 conv body's launches and the pre-pass,
+# and of the one-launch trunk (int8_dxcat)
 INT8_DEVICE_NAMES = ("int8_conv_kernel", "prepass_kernel")
+TRUNK_DEVICE_NAMES = ("int8_trunk_kernel",)
+# the gated iteration's batches: self-play (64 games), the gate match (40)
+GATE_BATCHES = (64, 40)
+DXCAT_REPEATS = 200
 TRUNK_SOURCE = "othello_reinforcement_learning_test_tpu_torch/csrc/trunk_int8_dx3.cu"
 TRUNK_REPLACES = "othello_reinforcement_learning_test_tpu/models/pallas_resnet.py:318"
 PALLAS = "othello_reinforcement_learning_test_tpu/models/pallas_resnet.py"
@@ -242,6 +259,9 @@ INT8_VARIANTS = {"int8_m9": (trunk_int8_m9, trunk_int8_m9_plain, 192),
                  "int8_patch": (trunk_int8_patch, trunk_int8_patch_plain, 230),
                  "int8_flat": (trunk_int8_flat, trunk_int8_flat_plain, 264),
                  "int8_dxcat": (trunk_int8_dxcat, trunk_int8_dxcat_plain, 377)}
+# the batches each is checked at
+VARIANT_BATCHES = {"int8_m9": (GAMES, 24, 3), "int8_patch": INT8_BATCHES,
+                   "int8_flat": (GAMES, 24, 3), "int8_dxcat": GATE_BATCHES + INT8_BATCHES}
 # benchmark_model.py --fused over every variant the port has
 BENCH_VARIANTS = ("matmul9", "wide", "int8", "int8_bf16", "int8_m9", "int8_patch", "int8_flat",
                   "int8_dx3", "int8_dxcat", "int8_xla")
@@ -294,6 +314,12 @@ STRONG = {
     "system": {"device": "auto", "seed": 42, "use_mixed_precision": True,
                "self_play_net_variant": "int8_dxcat"},
 }
+
+
+def launches_per_forward(kernel) -> int:
+    """A trunk kernel's launches a forward: one a conv, but int8_dxcat's
+    whole trunk in one."""
+    return DXCAT_LAUNCHES_PER_FORWARD if kernel is trunk_int8_dxcat else 2 * NUM_BLOCKS
 
 
 def phase(phase_name: str, **fields) -> None:
@@ -389,10 +415,12 @@ def wgmma_evidence(builds: dict) -> None:
     """The wgmma trunks' wgmma instruction count from ``cuobjdump -sass``,
     where the toolkit has it (their ptxas report is in the build lines):
     HGMMA (bf16) in ``trunk_matmul9`` and ``trunk_wide``, IGMMA (s8) in
-    ``trunk_int8_dx3`` and ``trunk_int8``."""
+    ``trunk_int8_dx3``, ``trunk_int8``, ``trunk_int8_patch`` and
+    ``trunk_int8_dxcat``."""
     cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
     for kname, op in (("trunk_matmul9", "HGMMA"), ("trunk_wide", "HGMMA"),
-                      ("trunk_int8_dx3", "IGMMA"), ("trunk_int8", "IGMMA")):
+                      ("trunk_int8_dx3", "IGMMA"), ("trunk_int8", "IGMMA"),
+                      ("trunk_int8_patch", "IGMMA"), ("trunk_int8_dxcat", "IGMMA")):
         count = "not measured"
         if cuobjdump.is_file():
             sass = subprocess.run([str(cuobjdump), "-sass", str(builds[kname].path)],
@@ -558,18 +586,21 @@ def check_wide(fused_w, feats, weights: str, check_forward: bool) -> float:
 
 def check_int8_variants(model, feats) -> dict:
     """The int8_m9, int8_patch, int8_flat and int8_dxcat kernels against
-    their plain versions at B=1024, 24 and 3 (bg 32, for dxcat 64; 8; 1),
-    bit for bit, and
-    FusedInference with each kernel against the plain trunk. Returns
-    {variant: (largest difference, FusedInference)}."""
+    their plain versions at their VARIANT_BATCHES, bit for bit, each call
+    launching launches_per_forward; int8_dxcat also in DXCAT_REPEATS
+    forwards at each of GATE_BATCHES; FusedInference with each kernel
+    against the plain trunk. Returns {variant: (largest difference,
+    FusedInference)}."""
     out = {}
     for variant, (kernel, plain, _) in INT8_VARIANTS.items():
         fused = FusedInference(model, variant=variant)
         args = (fused.trunk_w, fused.trunk_scale, fused.trunk_bias, fused.block_games)
         err = 0.0
-        for batch in (GAMES, 24, 3):
-            h = fused.stem(feats[:batch])
+        for batch in VARIANT_BATCHES[variant]:
+            h = fused.stem(batch_of(feats, batch))
+            before = kernel.launches
             out_k = kernel(h, *args)
+            launched = kernel.launches - before
             out_p = plain(h, *args)
             torch.cuda.synchronize()
             diff = (out_k.float() - out_p.float()).abs()
@@ -578,8 +609,19 @@ def check_int8_variants(model, feats) -> dict:
             check(bool(torch.isfinite(out_k.float()).all()), f"finite {variant} output")
             phase("kernel_check", kernel=kernel.__name__, batch=batch,
                   block_games=block_size(batch, fused.block_games), differing=n_diff,
-                  of=out_k.numel(), max_abs_diff=float(diff.max()))
+                  of=out_k.numel(), max_abs_diff=float(diff.max()), launches=launched)
             check(n_diff == 0, f"{kernel.__name__} == plain version at B={batch}")
+            check(launched == launches_per_forward(kernel),
+                  f"{kernel.__name__} launched {launched} times a forward")
+        if kernel is trunk_int8_dxcat:
+            for batch in GATE_BATCHES:
+                h = fused.stem(feats[:batch])
+                want = plain(h, *args)
+                bad = sum(not torch.equal(kernel(h, *args), want) for _ in range(DXCAT_REPEATS))
+                phase("kernel_check", kernel=kernel.__name__, batch=batch,
+                      repeats=DXCAT_REPEATS, forwards_differing=bad)
+                check(bad == 0, f"{kernel.__name__} == plain version in {DXCAT_REPEATS} "
+                      f"forwards at B={batch} ({bad} differ)")
         lp_k, v_k = fused(feats)
         lp_p, v_p = fused.heads(plain(fused.stem(feats), *args))
         check(torch.equal(lp_k, lp_p) and torch.equal(v_k, v_p),
@@ -946,8 +988,9 @@ def gating_phase() -> int:
     sp_s = dict((m[0], m[1]) for m in matches)["self_play"]
     _, gate_s, (win_rate, summary) = matches[-1]
     n_fwd = forwards["self_play"] + forwards["gate_match"]
-    check(launches > 0 and launches == 2 * NUM_BLOCKS * n_fwd,
-          f"int8_dxcat launches {launches} == 20 x forwards {n_fwd}")
+    per_forward = launches_per_forward(trunk_int8_dxcat)
+    check(launches > 0 and launches == per_forward * n_fwd,
+          f"int8_dxcat launches {launches} == {per_forward} x forwards {n_fwd}")
     check(not any(others.values()), f"no other trunk kernel in the gated iteration ({others})")
     check(summary.wins + summary.losses + summary.draws == 40 and len(summary.results) == 40,
           "40 gate games")
@@ -1035,8 +1078,9 @@ def benchmark_model_phase() -> dict:
     """The port's benchmark_model in process: ``--fused --fused-variants``
     every ported variant, default batches, ``--chain 16 --repeats 2``. Each
     variant's boards/s table is printed; every row at B >= 256 must be a
-    number; each kernel's launches must be 20 x the forwards of the
-    variants that run it. Returns the launches of each kernel."""
+    number; each kernel's launches must be launches_per_forward x the
+    forwards of the variants that run it. Returns the launches of each
+    kernel."""
     forwards = {}
     trunk = FusedInference.trunk
 
@@ -1066,10 +1110,11 @@ def benchmark_model_phase() -> dict:
     check(set(tables) == {"bf16", "f32", *BENCH_VARIANTS}, "a table for every variant")
     launches = {}
     for kernel in kernels:
-        want = 2 * NUM_BLOCKS * sum(n for v, n in forwards.items()
-                                    if VARIANT_KERNEL.get(v) is kernel)
+        want = launches_per_forward(kernel) * sum(n for v, n in forwards.items()
+                                                  if VARIANT_KERNEL.get(v) is kernel)
         check(want > 0 and kernel.launches == want,
-              f"{kernel.__name__} launches {kernel.launches} == 20 x its forwards ({want})")
+              f"{kernel.__name__} launches {kernel.launches} == {launches_per_forward(kernel)}"
+              f" x its forwards ({want})")
         launches[kernel.__name__] = kernel.launches
     return launches
 
@@ -1297,12 +1342,30 @@ def main() -> int:
                                time_ms(lambda: plain(hv, *args), reps=3, warmup=1),
                                time_ms(lambda: fv(feats), reps=20))
         check(torch.equal(kernel(hv, *args), plain(hv, *args)), f"timed {variant} == plain")
-    # int8_dxcat's main path, the gated iteration, runs at its self-play batch
-    gate_batch = STRONG["self_play"]["num_parallel_games"]
+    # int8_dxcat's main path, the gated iteration, runs at its self-play and
+    # gate-match batches; the int8 conv body as int8_dx3 launches it at the
+    # first of them; int8_patch's device time at B=1024
+    check(STRONG["self_play"]["num_parallel_games"] == GATE_BATCHES[0]
+          and STRONG["training"]["gating"]["games"] == GATE_BATCHES[1], "the gated batches")
     fx = variants["int8_dxcat"][1]
-    hx = fx.stem(feats[:gate_batch])
-    dxcat_gate_ms = time_ms(lambda: trunk_int8_dxcat(hx, fx.trunk_w, fx.trunk_scale,
-                                                     fx.trunk_bias, fx.block_games), reps=50)
+    fx_args = (fx.trunk_w, fx.trunk_scale, fx.trunk_bias, fx.block_games)
+    dxcat_path = {}
+    for batch in GATE_BATCHES + (GAMES,):
+        hx = fx.stem(feats[:batch])
+        dxcat_path[batch] = {
+            "kernel_ms": time_ms(lambda: trunk_int8_dxcat(hx, *fx_args), reps=50),
+            **trunk_device_ms(lambda: trunk_int8_dxcat(hx, *fx_args), TRUNK_DEVICE_NAMES),
+            "bound_ms": trunk_bound_ms(batch, layers, NUM_FILTERS)[0],
+            "bytes_floor_ms": int8_bytes_floor_ms(batch, layers, NUM_FILTERS)}
+    h_small = fused.stem(feats[:GATE_BATCHES[0]])
+    dx3_small = {"batch": GATE_BATCHES[0],
+                 "kernel_ms": time_ms(lambda: trunk_int8_dx3(h_small, w, ws, b), reps=50),
+                 **trunk_device_ms(lambda: trunk_int8_dx3(h_small, w, ws, b), INT8_DEVICE_NAMES),
+                 "bound_ms": trunk_bound_ms(GATE_BATCHES[0], layers, NUM_FILTERS)[0],
+                 "bytes_floor_ms": int8_bytes_floor_ms(GATE_BATCHES[0], layers, NUM_FILTERS)}
+    fp = variants["int8_patch"][1]
+    hp, fp_args = fp.stem(feats), (fp.trunk_w, fp.trunk_scale, fp.trunk_bias, fp.block_games)
+    patch_device = trunk_device_ms(lambda: trunk_int8_patch(hp, *fp_args), INT8_DEVICE_NAMES)
     boards = random_positions(engine, GAMES, 20, rng, dev)
     phase("profile", what=f"one search at B={GAMES}, {SIMS} simulations, 20 plies in",
           **profile_search(engine, fused, boards))
@@ -1310,7 +1373,8 @@ def main() -> int:
           plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
           bytes_floor_ms=int8_floor_ms, fused_forward_ms=forward_ms,
           launches_per_forward=layers, launches_per_ply=launches / plies,
-          forward_share_of_selfplay=forward_ms * forwards / 1e3 / seconds)
+          forward_share_of_selfplay=forward_ms * forwards / 1e3 / seconds,
+          small_batch=dx3_small)
     phase("timing", kernel="trunk_matmul9", batch=GAMES, kernel_ms=m9_ms, **m9_device,
           plain_ms=m9_plain_ms, bound_ms=m9_bound_ms, bound_by=m9_bound_by,
           fused_forward_ms=m9_forward_ms, launches_per_forward=layers,
@@ -1327,14 +1391,15 @@ def main() -> int:
           library_ms=wide_cudnn_ms, library="the same cuDNN tower as trunk_matmul9's, on "
           "the wide trunk's weights")
     for variant, (k_ms, p_ms, f_ms) in variant_ms.items():
-        at_path = ({"path_batch": gate_batch, "path_batch_kernel_ms": dxcat_gate_ms,
-                    "path_batch_bound_ms": trunk_bound_ms(gate_batch, layers, NUM_FILTERS)[0]}
-                   if variant == "int8_dxcat" else {})
+        at_path = ({"path_batches": dxcat_path} if variant == "int8_dxcat"
+                   else {**patch_device, "bytes_floor_ms": int8_floor_ms}
+                   if variant == "int8_patch" else {})
         phase("timing", kernel=INT8_VARIANTS[variant][0].__name__, batch=GAMES,
               block_games=block_size(GAMES, variants[variant][1].block_games), kernel_ms=k_ms,
               plain_ms=p_ms,
               bound_ms=bound_ms, bound_by=bound_by, fused_forward_ms=f_ms,
-              launches_per_forward=layers, library_ms=None, **at_path)
+              launches_per_forward=launches_per_forward(INT8_VARIANTS[variant][0]),
+              library_ms=None, **at_path)
     phase("timing", kernel="random_step", games=RANDOM_GAMES, kernel_ms=step_ms,
           plain_ms=step_plain_ms, bound_ms=step_bound_ms, bound_by=step_bound_by,
           bytes_ms=step_t_bytes, operations_ms=step_t_ops, ops_per_game=RANDOM_STEP_OPS,

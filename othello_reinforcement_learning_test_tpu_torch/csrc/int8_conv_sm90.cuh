@@ -1,5 +1,6 @@
-// The conv body the two int8 trunk kernels share (trunk_int8_dx3.cu,
-// trunk_int8.cu), for Hopper (sm_90a): one 3x3 conv of 8x8 boards, C = 128
+// The conv body the int8 trunk kernels share (trunk_int8_dx3.cu,
+// trunk_int8.cu, trunk_int8_patch.cu; int8_trunk_sm90.cuh, the one-launch
+// trunk, takes its pieces), for Hopper (sm_90a): one 3x3 conv of 8x8 boards, C = 128
 // channels in and out, of the quantized trunk, with the dequantisation, the
 // bias, the residual add (conv 1 of a block), ReLU and the next layer's
 // per-block amax fused. For each block of `bg` games:
@@ -232,19 +233,20 @@ __device__ __forceinline__ void quantize_into(uint32_t q_base, const float4 (&v)
 // bias, the residual (zero on conv 0: adding it changes no value that ReLU
 // lets through), ReLU, f32 out or on the last layer bf16; returns the max.
 // Thread (warp wl, lane) holds rows row0 = wl*16 + lane/4 (+ 8) and columns
-// 8*jn + col0 (+ 1), col0 = 2*(lane % 4), of the 64 x 128 accumulator:
+// 8*jn + col0 (+ 1), col0 = 2*(lane % 4), of the 64 x 2*NA accumulator (NA
+// = 64: all 128 channels; 32: the 64 from wscale, bias and game_off on):
 // acc[4*jn + 2*h + e] is row row0 + 8*h, column 8*jn + col0 + e, and
-// res[2*jn + h] its residual pair. No branch inside, so that the 32 pairs
-// interleave.
-template <bool LAST, typename Acc>
-__device__ __forceinline__ float epilogue(const Acc (&acc)[64], const float2 (&res)[32],
+// res[2*jn + h] its residual pair. No branch inside, so that the NA / 2
+// pairs interleave.
+template <bool LAST, typename Acc, int NA>
+__device__ __forceinline__ float epilogue(const Acc (&acc)[NA], const float2 (&res)[NA / 2],
                                           float s_act, const float* __restrict__ wscale,
                                           const float* __restrict__ bias, float* out,
                                           __nv_bfloat16* out_bf16, size_t game_off, int row0,
                                           int col0) {
   float m = 0.0f;
 #pragma unroll
-  for (int jn = 0; jn < 16; ++jn) {
+  for (int jn = 0; jn < NA / 4; ++jn) {
     const int n = 8 * jn + col0;
     const float2 wsc = __ldg(reinterpret_cast<const float2*>(wscale + n));
     const float2 b2 = __ldg(reinterpret_cast<const float2*>(bias + n));
@@ -270,16 +272,17 @@ __device__ __forceinline__ float epilogue(const Acc (&acc)[64], const float2 (&r
 }
 
 // The residual at a thread's accumulator positions (see epilogue), or zero
-__device__ __forceinline__ void load_residual(float2 (&res)[32], const float* resid,
+template <int NR>
+__device__ __forceinline__ void load_residual(float2 (&res)[NR], const float* resid,
                                               size_t game_off, int row0, int col0, int is_conv1) {
   if (is_conv1) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i)
+    for (int i = 0; i < NR; ++i)
       res[i] = *reinterpret_cast<const float2*>(
           resid + game_off + (row0 + 8 * (i & 1)) * C + 8 * (i >> 1) + col0);
   } else {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) res[i] = make_float2(0.0f, 0.0f);
+    for (int i = 0; i < NR; ++i) res[i] = make_float2(0.0f, 0.0f);
   }
 }
 

@@ -1,14 +1,14 @@
-// The im2col conv shared by trunk_int8_patch.cu and trunk_int8_flat.cu:
+// The im2col conv of trunk_int8_flat.cu:
 // weights resident in shared memory as (C_out, 9C), one game's activations
 // quantized into a tile, a patch of half a game's rows (32, 9C) built from
 // that tile, and ONE deep (32, 9C) @ (9C, C) int8 product per half game.
-// The two kernels differ only in their tile and in how they gather the patch
-// from it, which each passes in as `Tile` (see either .cu):
+// The kernel's tile and how it gathers the patch from it come in as `Tile`
+// (see trunk_int8_flat.cu):
 //   Tile::BYTES                      shared bytes of one game's tile
 //   Tile::pos(p)                     tile row of board position p
 //   Tile::src(p, dy, dx)             tile row of p's neighbour (dy, dx), or
 //                                    -1 where the patch holds zeros
-// Included inside each kernel's anonymous namespace, after
+// Included inside the kernel's anonymous namespace, after
 // int8_trunk_common.cuh.
 //
 // Shared memory: one game's (64, 1152) int8 patch is 72 KiB, and the

@@ -1,5 +1,6 @@
-// Pieces shared by the int8 trunk kernels (trunk_int8_dx3.cu, trunk_int8.cu,
-// trunk_int8_m9.cu, trunk_int8_patch.cu, trunk_int8_flat.cu):
+// Pieces shared by the int8 trunk kernels (through int8_conv_sm90.cuh:
+// trunk_int8_dx3.cu, trunk_int8.cu, trunk_int8_patch.cu, trunk_int8_dxcat.cu;
+// directly: trunk_int8_m9.cu, trunk_int8_flat.cu):
 // the activation scale and quantisation, the s8 mma.sync, the warp max, and
 // the pre-pass that converts the bf16 trunk input to f32 and reduces the
 // first layer's per-block amax. Included inside each kernel's anonymous

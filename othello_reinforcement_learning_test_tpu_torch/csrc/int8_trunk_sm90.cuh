@@ -1,0 +1,398 @@
+// The int8 trunk in one launch (trunk_int8_dxcat.cu), for Hopper (sm_90a):
+// the pre-pass and every conv of the residual tower of int8_conv_sm90.cuh's
+// function (per-block activation scale, true division, round half to even,
+// the int32 3x3 conv, s_act * w_scale first, no FMA, bias, residual and ReLU
+// in f32, a bf16 output) in one persistent cooperative kernel, for the
+// gated iteration's small batches (B = 40-64), where one launch a conv left
+// most SMs idle and paid a launch, a host call and a weight load a conv.
+//
+// Design:
+// - The body's pieces: the A-descriptor shift into a zero-padded 10x10 tile,
+//   the reciprocal quantisation with its exact fallback, the TMA-fed
+//   producer warpgroup and its ring of tiles, the epilogue and the atomicMax
+//   of the next layer's per-block amax (int8_conv_sm90.cuh).
+// - A consumer warpgroup's wgmma covers a game's 64 positions and a part of
+//   its 128 output channels: half (m64n64k32, 32 accumulator registers a
+//   thread) or a quarter (m64n32k32, 16). Every int32 sum is whole in one
+//   warpgroup and the epilogue is per element, so how the channels are
+//   spread changes no bit; the amax atomics take any number of writers.
+// - The split rule, from B and the SM count (sms):
+//   * B < sms (split): the grid is 2 * min(B, sms / 2) CTAs. CTA i computes
+//     channel half i % 2 of the games i / 2, i / 2 + grid / 2, ...; its two
+//     consumer warpgroups a quarter each of every game, so that a CTA with
+//     one game keeps both busy. It holds only its half of a layer's
+//     weights, 9 x 64 x 128 = 73,728 B, so two layers fit: the next layer's
+//     half comes by TMA while this one computes. At B = 64, 128 SMs work
+//     (one launch a conv of the body used 32).
+//   * B >= sms (whole): every SM has a game a conv already, and a split
+//     would load and quantize each game twice. The grid is sms CTAs, CTA i
+//     takes games i, i + sms, ...; consumer warpgroup c computes half c of
+//     every game from the same tile, and the two buffers hold the two halves
+//     of one layer. The next layer's weights come once both consumers are
+//     done with this one's, during the epilogue's last stores and the
+//     barrier.
+// - The whole trunk in one launch: the grid is at most one CTA an SM (the
+//   shared memory), launched cooperatively so that all are co-resident, or
+//   the launch fails. A grid-wide barrier follows the pre-pass and every
+//   conv but the last: the per-block amax of conv l + 1's input is whole
+//   only when every CTA has finished conv l. The f32 activations stay in
+//   device memory between convs (2 MB a tensor at B = 64: the L2 holds
+//   them).
+// - Memory order across the barrier: every thread fences its generic
+//   stores for the async proxy; after the CTA's barrier, thread 0 fences
+//   at gpu scope (cumulative over what the CTA's barrier ordered before it)
+//   and arrives with a release add, spins with acquire loads, then fences
+//   for the async proxy before its first TMA of the next conv. The amax is
+//   read at L2 (ld.global.cg).
+// - The pre-pass (bf16 input to f32, the first layer's per-block amax) is
+//   the kernel's first phase; the host call zeroes the amax and the barrier
+//   counters first (one memset) and launches once.
+//
+// Launches of a layer range [lb, le) (kernels/conv_stages.py launches one a
+// conv to measure what the barrier buys) use barrier counter lb.
+
+#pragma once
+
+#include "int8_conv_sm90.cuh"
+
+namespace int8trunk {
+// internal linkage, as int8conv
+namespace {
+
+using namespace sm90;
+using namespace int8conv;
+
+constexpr int NH = C / 2;                           // output channels of one wgmma
+constexpr int W_HTAP_BYTES = NH * C;                // one tap's half: 8,192
+constexpr int W_HALF_BYTES = TAPS * W_HTAP_BYTES;   // one layer's half: 73,728
+// + 1024: the weights' alignment; two weight buffers, the ring of padded
+// tiles, two f32 half-games of staging; the barriers: full and empty a
+// tile, one a staging half, one a weight buffer, and the weights' release
+constexpr int TRUNK_SMEM_BYTES =
+    1024 + 2 * W_HALF_BYTES + STAGES * TILE_BYTES + 2 * HALF_BYTES + (2 * STAGES + 5) * 8;
+
+static_assert(TRUNK_SMEM_BYTES <= 232448, "fits one block's shared memory");
+
+// d (64 x 64 s32) += A (64 x 32 s8) @ B (32 x 64 s8)
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 32 s32) += A (64 x 32 s8) @ B (32 x 32 s8)
+__device__ __forceinline__ void wgmma_s8(int (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// One game's products and epilogue for a consumer warpgroup: the 2 * NA
+// output channels from game_off, wscale, bias and the weight rows wb on
+// (NA = 32: 64 channels, 16: 32), once the tile is full; releases the tile
+// (empty) when the products are done. Returns the thread's max.
+template <int NA>
+__device__ __forceinline__ float conv_game(uint32_t tile, uint32_t wb, uint32_t empty,
+                                           float s_act, const float* wsc, const float* bi,
+                                           const float* resid, float* dst, __nv_bfloat16* out,
+                                           size_t game_off, int row0, int col0, int conv1,
+                                           int last) {
+  float2 res[NA / 2];
+  int acc[NA];
+#pragma unroll
+  for (int k = 0; k < NA; ++k) acc[k] = 0;
+  fence_operands(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int tap = 0; tap < TAPS; ++tap)
+#pragma unroll
+    for (int ks = 0; ks < C / 32; ++ks)
+      wgmma_s8(acc, a_desc(a_tap(tile, tap), ks), b_desc(wb + tap * W_HTAP_BYTES, ks));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  load_residual(res, resid, game_off, row0, col0, conv1);  // in flight with the products
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_operands(acc);
+  mbar_arrive(empty);  // the products are done
+  return last ? epilogue<true>(acc, res, s_act, wsc, bi, dst, out, game_off, row0, col0)
+              : epilogue<false>(acc, res, s_act, wsc, bi, dst, out, game_off, row0, col0);
+}
+
+// Thread 0: half `half` of layer l's weights (nine [64 C_out][128 C_in]
+// boxes) into the buffer at dst, completing on bar
+__device__ __forceinline__ void load_weights(uint32_t dst, uint32_t bar, const CUtensorMap* map,
+                                             int l, int half) {
+  mbar_expect_tx(bar, W_HALF_BYTES);
+  for (int tap = 0; tap < TAPS; ++tap)
+    tma_load_2d(dst + tap * W_HTAP_BYTES, map, 0, (l * TAPS + tap) * C + half * NH, bar);
+}
+
+// about 10 s at the SM clock: a grid barrier that waits longer is a fault
+constexpr long long SPIN_CYCLES = 20000000000LL;
+
+// All threads of every CTA: the k-th barrier of the launch on `count`
+// (target k * gridDim.x). See the note for the fences.
+__device__ __forceinline__ void grid_barrier(unsigned* count, unsigned target) {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();  // cumulative: the CTA's writes, which the barrier ordered before it
+    asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(count), "r"(1u) : "memory");
+    const long long t0 = clock64();
+    unsigned v;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(count) : "memory");
+      if (clock64() - t0 > SPIN_CYCLES) __trap();  // a CTA is missing: fail, not hang
+    } while (v < target);
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The trunk's layers [lb, le), with the pre-pass first when lb = 0.
+//   wmap:  every layer's int8 weights, (L * 9 * C_out) rows of C_in
+//   x:     bf16 (B, 64, C) trunk input
+//   xf, yf: f32 (B, 64, C) block input and conv 0 output
+//   out:   bf16 (B, 64, C) trunk output (the last layer's)
+//   wscale, bias: f32 (L, C)
+//   amax:  f32 (L, B / bg) per-block max of each layer's input, zeroed
+//   count: this launch's barrier counter, zeroed
+// SPLIT: the channel split (see the note); one instantiation each, so that
+// each holds the registers of one consumer path
+template <bool SPLIT>
+__global__ void __launch_bounds__(CONV_THREADS, 1)
+int8_trunk_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16* __restrict__ x,
+                  float* xf, float* yf, __nv_bfloat16* out, const float* __restrict__ wscale,
+                  const float* __restrict__ bias, float* amax, unsigned* count, int L, int B,
+                  int bg, int lb, int le) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ws = (smem_u32(smem_raw) + 1023) & ~1023u;  // two weight buffers
+  const uint32_t tiles = ws + 2 * W_HALF_BYTES;               // the ring of padded tiles
+  const uint32_t staging = tiles + STAGES * TILE_BYTES;       // two f32 half-games
+  const uint32_t bars = staging + 2 * HALF_BYTES;             // full[STAGES], empty[STAGES]
+  const uint32_t sbars = bars + 2 * STAGES * 8;               // the staging halves'
+  const uint32_t wbars = sbars + 2 * 8;                       // the weight buffers'
+  const uint32_t wfree = wbars + 2 * 8;                       // consumers done with a layer
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wl = warp & 3, t = tid & 127;
+  const int nblk = B / bg;
+  // this CTA's games: slot, slot + step, ... (n of them, at least one)
+  const int slot = SPLIT ? blockIdx.x >> 1 : blockIdx.x;
+  const int step = SPLIT ? gridDim.x >> 1 : gridDim.x;
+  const int n = (B - slot + step - 1) / step;
+  const int my_half = blockIdx.x & 1;  // split: the CTA's channel half
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + s * 8, 128);                             // full: the producer
+      mbar_init(bars + (STAGES + s) * 8, 256);                  // empty: both consumers
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(sbars + i * 8, 1);
+      mbar_init(wbars + i * 8, 1);
+    }
+    mbar_init(wfree, 256);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (SPLIT) {  // the first two layers of this CTA's half
+      load_weights(ws, wbars, &wmap, lb, my_half);
+      if (lb + 1 < le) load_weights(ws + W_HALF_BYTES, wbars + 8, &wmap, lb + 1, my_half);
+    } else {      // both halves of the first layer
+      load_weights(ws, wbars, &wmap, lb, 0);
+      load_weights(ws + W_HALF_BYTES, wbars + 8, &wmap, lb, 1);
+    }
+  }
+  for (int i = tid; i < STAGES * TILE_BYTES / 16; i += CONV_THREADS) st_zero16(tiles + i * 16);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the halos, for wgmma
+  __syncthreads();
+
+  unsigned barriers = 0;
+  if (lb == 0) {
+    // the pre-pass: a split CTA converts its half of each game's rows
+    const int r0 = SPLIT ? my_half * (P / 2) : 0, rows = SPLIT ? P / 2 : P;
+    for (int i = 0; i < n; ++i) {
+      const int g = slot + i * step;
+      const size_t off = (static_cast<size_t>(g) * P + r0) * C;
+      const uint4* src = reinterpret_cast<const uint4*>(x + off);
+      float4* dst = reinterpret_cast<float4*>(xf + off);
+      float m = 0.0f;
+      for (int k = tid; k < rows * C / 8; k += CONV_THREADS) {
+        const uint4 u = src[k];
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+        float f[8];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          f[2 * e] = __uint_as_float(w[e] << 16);
+          f[2 * e + 1] = __uint_as_float(w[e] & 0xFFFF0000u);
+        }
+        dst[2 * k] = make_float4(f[0], f[1], f[2], f[3]);
+        dst[2 * k + 1] = make_float4(f[4], f[5], f[6], f[7]);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(f[e]));
+      }
+      m = warp_max(m);
+      if (lane == 0) atomicMax(reinterpret_cast<int*>(amax) + g / bg, __float_as_int(m));
+    }
+    grid_barrier(count, ++barriers * gridDim.x);
+  }
+
+  // the producer's thread: its float4s and their place in a tile (see
+  // int8_conv_sm90.cuh's producer); the consumers' accumulator positions
+  const uint32_t q_off = ((t & 31) >> 2) * CHUNK_BYTES + (t & 3) * 4 + (PADW + 1 + (t >> 5)) * 16;
+  const int row0 = wl * 16 + (lane >> 2), col0 = 2 * (lane & 3);
+  int jj = 0;  // the CTA's games before this layer in the launch: ring slots and phases
+  for (int l = lb; l < le; ++l, jj += n) {
+    const int li = l - lb, conv1 = l & 1, last = l == L - 1;
+    const float* in = conv1 ? yf : xf;
+    float* dst = conv1 ? xf : yf;
+    const float* amax_in = amax + l * nblk;
+    if (wg == 0) {
+      // the producer: each game by two bulk copies, quantized into the ring
+      if (t == 0) {
+        stage_half(staging, sbars, in, slot, 0);
+        stage_half(staging, sbars, in, slot, 1);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int j = jj + i, g = slot + i * step, s = j % STAGES;
+        mbar_wait(bars + (STAGES + s) * 8, ((j / STAGES) & 1) ^ 1);  // empty[s]
+        const float s_act = act_scale(__ldcg(amax_in + g / bg));
+        const float y = __frcp_rn(s_act);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          mbar_wait(sbars + hh * 8, j & 1);
+          float4 v[LOADS];
+#pragma unroll
+          for (int k = 0; k < LOADS; ++k)
+            asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                         : "=f"(v[k].x), "=f"(v[k].y), "=f"(v[k].z), "=f"(v[k].w)
+                         : "r"(staging + hh * HALF_BYTES + (t + 128 * k) * 16)
+                         : "memory");
+          quantize_into(tiles + s * TILE_BYTES + q_off + hh * (S / 2) * PADW * 16, v, s_act, y);
+          wg_sync(0);  // every producer thread has read the half
+          if (t == 0 && i + 1 < n) stage_half(staging, sbars, in, g + step, hh);
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma's reads
+        mbar_arrive(bars + s * 8);                                      // full[s]
+      }
+      // the next weights, into the buffers this layer's consumers are done with
+      const int next = SPLIT ? l + 2 : l + 1;
+      if (t == 0 && next < le) {
+        mbar_wait(wfree, li & 1);
+        if (SPLIT) {
+          load_weights(ws + (li & 1) * W_HALF_BYTES, wbars + (li & 1) * 8, &wmap, next, my_half);
+        } else {
+          load_weights(ws, wbars, &wmap, next, 0);
+          load_weights(ws + W_HALF_BYTES, wbars + 8, &wmap, next, 1);
+        }
+      }
+    } else {
+      // the consumers, on every game of the CTA: split, warpgroup 1 + c
+      // computes quarter c of the CTA's half (32 channels); whole, half c
+      const int c = wg - 1;
+      const int b = SPLIT ? li & 1 : c;
+      const int n0 = SPLIT ? my_half * NH + c * (NH / 2) : c * NH;  // the first channel
+      mbar_wait(wbars + b * 8, SPLIT ? (li >> 1) & 1 : li & 1);
+      const uint32_t wb = ws + b * W_HALF_BYTES + (SPLIT ? c * (NH / 2) * C : 0);
+      const float* wsc = wscale + l * C + n0;
+      const float* bi = bias + l * C + n0;
+      for (int i = 0; i < n; ++i) {
+        const int j = jj + i, g = slot + i * step, s = j % STAGES;
+        const float s_act = act_scale(__ldcg(amax_in + g / bg));
+        const size_t game_off = static_cast<size_t>(g) * P * C + n0;
+        const uint32_t tile = tiles + s * TILE_BYTES, empty = bars + (STAGES + s) * 8;
+        mbar_wait(bars + s * 8, (j / STAGES) & 1);  // full[s]
+        float m = conv_game<SPLIT ? 16 : 32>(tile, wb, empty, s_act, wsc, bi, xf, dst, out,
+                                             game_off, row0, col0, conv1, last);
+        m = warp_max(m);
+        if (lane == 0 && l + 1 < L)
+          atomicMax(reinterpret_cast<int*>(amax + (l + 1) * nblk + g / bg), __float_as_int(m));
+      }
+      mbar_arrive(wfree);  // this layer's weights are free
+    }
+    if (l + 1 < le) grid_barrier(count, ++barriers * gridDim.x);
+  }
+}
+
+// Layers [lb, le) of the trunk in one cooperative launch on barrier counter
+// `count`. w: (L, 9, C_out, C_in) int8. Returns 0, a cudaError_t, or minus
+// a CUresult of the tensor-map encoder.
+int launch_layers(const void* x, void* xf, void* yf, void* out, const void* w, const void* wscale,
+                  const void* bias, void* amax, void* count, int L, int B, int bg, int lb, int le,
+                  void* stream) {
+  static HostState hosts[2];  // the split kernel's, the whole one's
+  // a box is one tap's half: 64 output channels x 128 input channels, rows
+  // of 128 B, swizzled as wgmma reads them
+  const WeightMap layout = {CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                            {C, static_cast<cuuint64_t>(L) * TAPS * C}, C, {C, NH}};
+  CUtensorMap wmap;
+  int sms = 0;
+  int rc = prepare_launch(hosts[0], reinterpret_cast<const void*>(int8_trunk_kernel<true>),
+                          TRUNK_SMEM_BYTES, w, layout, &wmap, &sms);
+  if (rc != 0) return rc;
+  const bool split = B < sms;
+  auto kernel = split ? int8_trunk_kernel<true> : int8_trunk_kernel<false>;
+  if (!split &&
+      (rc = prepare_launch(hosts[1], reinterpret_cast<const void*>(kernel), TRUNK_SMEM_BYTES, w,
+                           layout, &wmap, &sms)) != 0)
+    return rc;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(split ? 2 * (B < sms / 2 ? B : sms / 2) : sms);
+  config.blockDim = dim3(CONV_THREADS);
+  config.dynamicSmemBytes = TRUNK_SMEM_BYTES;
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &config, kernel, wmap, static_cast<const __nv_bfloat16*>(x), static_cast<float*>(xf),
+      static_cast<float*>(yf), static_cast<__nv_bfloat16*>(out),
+      static_cast<const float*>(wscale), static_cast<const float*>(bias),
+      static_cast<float*>(amax), static_cast<unsigned*>(count), L, B, bg, lb, le);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// One trunk forward: zeroes the scratch (the amax, L x B / bg floats, then
+// L barrier counters), then launches the layers, `per_launch` at a time (L:
+// the whole trunk in one launch).
+int forward(const void* x, void* xf, void* yf, void* out, const void* w, const void* wscale,
+            const void* bias, void* scratch, int L, int B, int bg, int per_launch, void* stream) {
+  if (B <= 0) return 0;
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(xf) |
+       reinterpret_cast<uintptr_t>(yf) | reinterpret_cast<uintptr_t>(w)) & 15 ||
+      L <= 0 || bg <= 0 || B % bg || per_launch <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);  // 16-byte loads, TMA, whole blocks
+  float* amax = static_cast<float*>(scratch);
+  unsigned* counts = reinterpret_cast<unsigned*>(amax + static_cast<size_t>(L) * (B / bg));
+  const cudaError_t e = cudaMemsetAsync(
+      scratch, 0, sizeof(float) * (static_cast<size_t>(L) * (B / bg) + L),
+      static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  for (int lb = 0; lb < L; lb += per_launch) {
+    const int le = lb + per_launch < L ? lb + per_launch : L;
+    const int rc = launch_layers(x, xf, yf, out, w, wscale, bias, amax, counts + lb, L, B, bg,
+                                 lb, le, stream);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+}  // namespace
+}  // namespace int8trunk

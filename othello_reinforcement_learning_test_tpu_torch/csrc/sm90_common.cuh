@@ -14,6 +14,7 @@
 
 #include <map>
 #include <mutex>
+#include <utility>
 
 namespace sm90 {
 // internal linkage: a function-local static of a template with external
@@ -96,12 +97,12 @@ constexpr size_t MAX_MAPS = 4096;  // cached weight maps before the cache starts
 
 // What a kernel's launches need besides their arguments, set up once: the
 // encoder cuTensorMapEncodeTiled, per device the SM count (0 until the
-// kernel's attribute is set), the weight maps by pointer.
+// kernel's attribute is set), the weight maps by pointer and row count.
 struct HostState {
   std::mutex mu;
   EncodeTiled encode = nullptr;
   int sms[MAX_DEVICES] = {};
-  std::map<uintptr_t, CUtensorMap> maps;
+  std::map<std::pair<uintptr_t, cuuint64_t>, CUtensorMap> maps;
 };
 
 // A layer's weights as the kernel's TMA reads them: a 2-D tensor of
@@ -116,7 +117,7 @@ struct WeightMap {
 
 // Sets up a launch of `kernel` on the current device: the encoder, the
 // kernel's shared-memory attribute and the SM count (once per device), and
-// the weight map of `w` (once per pointer). Returns 0, a cudaError_t, or
+// the weight map of `w` (once per pointer and row count). Returns 0, a cudaError_t, or
 // minus a CUresult of the encoder.
 int prepare_launch(HostState& host, const void* kernel, int smem_bytes, const void* w,
                    const WeightMap& layout, CUtensorMap* wmap, int* sms) {
@@ -146,7 +147,8 @@ int prepare_launch(HostState& host, const void* kernel, int smem_bytes, const vo
       return static_cast<int>(e);
   }
   *sms = host.sms[dev];
-  auto it = host.maps.find(reinterpret_cast<uintptr_t>(w));
+  const std::pair<uintptr_t, cuuint64_t> key(reinterpret_cast<uintptr_t>(w), layout.dims[1]);
+  auto it = host.maps.find(key);
   if (it == host.maps.end()) {
     if (host.maps.size() >= MAX_MAPS) host.maps.clear();
     CUtensorMap map;
@@ -157,7 +159,7 @@ int prepare_launch(HostState& host, const void* kernel, int smem_bytes, const vo
                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) return -static_cast<int>(r);
-    it = host.maps.emplace(reinterpret_cast<uintptr_t>(w), map).first;
+    it = host.maps.emplace(key, map).first;
   }
   *wmap = it->second;
   return 0;

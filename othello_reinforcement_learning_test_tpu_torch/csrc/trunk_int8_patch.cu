@@ -1,69 +1,38 @@
-// Int8 residual trunk as an im2col patch built from a padded tile (variant
-// "int8_patch"), for Hopper (sm_90a).
+// Int8 residual trunk as an im2col product over a zero-padded tile (variant
+// "int8_patch"), for Hopper (sm_90a): one launch of the int8 conv body
+// (int8_conv_sm90.cuh, int32 sums) per conv, after a pre-pass, at the
+// variant's block of 32 games.
 //
 // Replaces the Pallas TPU kernel `_trunk_kernel_int8_patch`
 // (othello_reinforcement_learning_test_tpu/models/pallas_resnet.py:230),
 // reached through `fused_trunk_int8(kernel="patch")`. It computes the
-// int8_dx3 function, not the same blocking. For each of the L = 2 *
-// num_blocks convs and each block of `bg` games:
-//   s_act = max(amax|h| over the block, 1e-8) / 127
-//   q     = clip(rint(h / s_act), -127, 127)             (int8, true division)
-//   patch = [shift_0(pad(q)), ..., shift_8(pad(q))]       ((rows, 9C) int8)
-//   acc   = patch @ w                                     (int32, K = 1152)
-//   z     = float(acc) * (s_act * w_scale[c]) + bias[c]   (f32, no FMA)
-// with y = relu(conv0(x)), x = relu(x + conv1(y)) in f32 and a bf16 output.
+// int8_dx3 function (per-block activation scale, true division, round half
+// to even, the int32 3x3 conv, s_act * w_scale first, no FMA; bias, residual
+// and ReLU in f32; a bf16 output). The Pallas kernel quantizes a game into a
+// zero-padded tile and takes one K = 9C = 1152 product over the patch its
+// nine shifted reads make. The body does the same product without building
+// the patch: 36 wgmma k-steps from nine A-descriptor offsets into the padded
+// tile. Its (9C, C) tap-major weights are relaid out once per weight set as
+// (9, C_out, C_in), K-major, as an 8-bit wgmma needs.
 //
-// Shapes: 8x8 boards and C = 128 channels only (the wrapper raises on any
-// other); the plain version takes any board side and channel count.
+// Bounds on an H100 SXM at B = 1024, 20 convs: 3.9e11 int8 operations,
+// 0.195 ms at 1,979 TOP/s; the bytes of this structure (f32 activations
+// between convs, one launch a conv: trunk_int8_dx3.cu) 1.71 GB, 0.512 ms at
+// 3.35 TB/s. The body's design aims at the second.
 //
-// Bound on an H100 SXM: 20 convs x B*64 rows x 128*128*9 MACs x 2 is
-// 3.9e11 int8 operations per forward at B = 1024, 0.2 ms at the dense int8
-// tensor-core rate of 1,979 TOP/s; the bytes (bf16 in and out, 2.9 MB of
-// weights) take about 0.01 ms, so the trunk is bound by operations.
-//
-// Data movement (the row's own): a game is quantized once into a zero-padded
-// 10x10 int8 tile; the patch's column block k is the tile read at tap k's
-// offset, so the border supplies the zeros and no mask is needed; then one
-// deep product per patch. Choice for shared memory (see
-// int8_patch_gemm.cuh): the layer's weights stay resident and the CTA walks
-// one game at a time, its patch in two halves of 32 rows. Products are
-// warp-level mma.sync m16n8k32 (s8 * s8 -> s32); wgmma and TMA are later
-// work. The epilogue fuses dequantisation, bias, residual and ReLU, and
-// reduces the next layer's per-block amax with atomicMax on the float's bit
-// pattern (every value is >= 0 after ReLU). A small pre-pass converts the
-// bf16 input to f32 and reduces the first layer's amax.
-//
-// Plain C interface for ctypes; each function returns cudaGetLastError().
+// Plain C interface for ctypes; each function returns 0 or an error code.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "int8_conv_sm90.cuh"
 
-namespace {
-
-#include "int8_trunk_common.cuh"
-#include "int8_patch_gemm.cuh"
-
-// one game zero-padded to 10x10; the border is never written
-struct PaddedTile {
-  static constexpr int W = S + 2;
-  static constexpr int BYTES = W * W * TSTRIDE;
-  __device__ static int pos(int p) { return ((p >> 3) + 1) * W + (p & 7) + 1; }
-  __device__ static int src(int p, int dy, int dx) { return pos(p) + dy * W + dx; }
-};
-
-}  // namespace
-
-extern "C" int trunk_patch_prepass(const void* x, void* xf, void* amax, int B,
-                                   int bg, int num_layers, void* stream) {
-  return launch_prepass(x, xf, amax, B, bg, num_layers, stream);
+extern "C" int trunk_patch_prepass(const void* x, void* xf, void* amax, int B, int bg,
+                                   int num_layers, void* stream) {
+  return int8conv::prepass(x, xf, amax, B, bg, num_layers, stream);
 }
 
-extern "C" int trunk_patch_conv(const void* in, const void* resid, void* out,
-                                void* out_bf16, const void* w, const void* wscale,
-                                const void* bias, void* amax, int layer,
-                                int num_layers, int B, int bg, int is_conv1,
+extern "C" int trunk_patch_conv(const void* in, const void* resid, void* out, void* out_bf16,
+                                const void* w, const void* wscale, const void* bias, void* amax,
+                                int layer, int num_layers, int B, int bg, int is_conv1,
                                 int is_last, void* stream) {
-  return launch_patch_conv<PaddedTile>(in, resid, out, out_bf16, w, wscale, bias, amax,
-                                       layer, num_layers, B, bg, is_conv1, is_last, stream);
+  return int8conv::launch<false>(in, resid, out, out_bf16, w, wscale, bias, amax, layer,
+                                 num_layers, B, bg, is_conv1, is_last, stream);
 }

@@ -1,33 +1,42 @@
 """Which stage limits the trunk kernels: time each with a stage taken out.
 
-    python -m othello_reinforcement_learning_test_tpu_torch.kernels.conv_stages [--body bf16|int8]
+    python -m othello_reinforcement_learning_test_tpu_torch.kernels.conv_stages [--body bf16|int8|dxcat]
 
 Needs a CUDA card and ``nvcc``. Builds variants of a shared conv body, each
 with stages removed by text edits of its header, and times one trunk
 forward of 20 convs at B=1024 (20 layers of random weights, the second conv
 of each block with its residual, as the trunk launches them) with CUDA
 events, each variant twice in alternating order. The variants' outputs are
-wrong by design; only their times are read. The bodies (``--body``, both by
+wrong by design; only their times are read. The bodies (``--body``, all by
 default):
 
 - ``bf16``: ``csrc/bf16_conv_sm90.cuh`` (``trunk_matmul9`` and
   ``trunk_wide``) on random bf16 activations;
 - ``int8``: ``csrc/int8_conv_sm90.cuh`` (``trunk_int8_dx3``, and
   ``trunk_int8`` with ``stage_bf16``) on random f32 activations, after the
-  trunk's pre-pass, at their default blocks of 64 and 16 games.
+  trunk's pre-pass, at their default blocks of 64 and 16 games;
+- ``dxcat``: ``csrc/int8_trunk_sm90.cuh`` (``trunk_int8_dxcat``, the whole
+  trunk in one cooperative launch) at B=64 and 40, the gated iteration's
+  batches, and at 1024, block of 64 games, on random bf16 input; beside its
+  variants, ``per_conv`` (the same kernel launched once a conv from the
+  same C call, no grid barrier) and ``int8_dx3`` (the int8 body as its
+  wrapper launches it, one launch and one host call a conv).
 
 The variants:
 
 - ``full``: the kernel as it is;
 - ``no_loads``: bf16: no game after a warpgroup's first is loaded (its
   tile is reused), so neither the global loads nor the shared stores of
-  the activation pipeline run; int8: the producer stages only its first
-  game and quantizes it again for every later game;
+  the activation pipeline run; int8 and dxcat: the producer stages only
+  its first game (dxcat: of the launch) and quantizes it again for every
+  later game (and conv);
 - ``no_quantize`` (int8 only): the loads run, but each float4's first
   float's bits are written to the tile in place of its four int8 codes;
-- ``no_stores``: the epilogue writes nothing to global memory;
-- ``no_loads_no_stores``: both;
-- ``no_products``: no ``wgmma`` is issued (the fences, commits and waits stay).
+- ``no_stores`` (bf16, int8): the epilogue writes nothing to global memory;
+- ``no_loads_no_stores`` (bf16, int8): both;
+- ``no_products``: no ``wgmma`` is issued (the fences, commits and waits stay);
+- ``no_barrier`` (dxcat only): thread 0 of a CTA arrives at the grid barrier
+  and goes on without waiting for the others.
 
 Prints one JSON line per kernel and variant, then the card's name and power
 limit. The kernels' own tests are in ``tests/test_torch_cuda.py`` and
@@ -125,10 +134,37 @@ extern "C" int conv(const void* in, const void* resid, void* out, void* out_bf16
       is_last, stream);
 }}
 """
+TRUNK_HEADER = "int8_trunk_sm90.cuh"
+TRUNK_STAGE_EDITS = {
+    "barrier": [("    } while (v < target);", "    } while (false);")],
+    "loads": [
+        ("      if (t == 0) {\n        stage_half(staging, sbars, in, slot, 0);",
+         "      if (t == 0 && jj == 0) {\n        stage_half(staging, sbars, in, slot, 0);"),
+        ("          mbar_wait(sbars + hh * 8, j & 1);",
+         "          if (j == 0) mbar_wait(sbars + hh * 8, 0);"),
+        ("          if (t == 0 && i + 1 < n) stage_half(", "          if (false) stage_half("),
+    ],
+    "products": [
+        ("    for (int ks = 0; ks < C / 32; ++ks)\n      wgmma_s8(acc,",
+         "    for (int ks = 0; ks < 0; ++ks)\n      wgmma_s8(acc,"),
+    ],
+}
+TRUNK_VARIANTS = {"full": (), "no_barrier": ("barrier",), "no_loads": ("loads",),
+                  "no_products": ("products",)}
+TRUNK_ENTRY = """#include "{header}"
+extern "C" int trunk(const void* x, void* xf, void* yf, void* out, const void* w,
+                     const void* wscale, const void* bias, void* scratch, int L, int B, int bg,
+                     int per_launch, void* stream) {{
+  return int8trunk::forward(x, xf, yf, out, w, wscale, bias, scratch, L, B, bg, per_launch,
+                            stream);
+}}
+"""
 # body: (header, its stage edits, its variants, the entry points' source)
 BODIES = {"bf16": (HEADER, STAGE_EDITS, VARIANTS, ENTRY),
-          "int8": (INT8_HEADER, INT8_STAGE_EDITS, INT8_VARIANTS, INT8_ENTRY)}
+          "int8": (INT8_HEADER, INT8_STAGE_EDITS, INT8_VARIANTS, INT8_ENTRY),
+          "dxcat": (TRUNK_HEADER, TRUNK_STAGE_EDITS, TRUNK_VARIANTS, TRUNK_ENTRY)}
 BATCH, LAYERS, C = 1024, 20, 128
+DXCAT_BATCHES = (64, 40, 1024)
 
 
 def variant_header(text: str, stages, edits=STAGE_EDITS, header: str = HEADER) -> str:
@@ -236,6 +272,48 @@ def int8_forwards(libs: dict) -> dict:
     return forwards
 
 
+def dxcat_forwards(libs: dict) -> dict:
+    """{((kernel, batch), variant): one trunk forward}: the one-launch trunk's
+    variants, ``per_conv`` (the full build, one launch a conv) and
+    ``int8_dx3`` (its wrapper on the same K-major weights)."""
+    import torch
+
+    from .trunk_int8_dx3 import block_size, trunk_int8_dx3
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w = torch.randint(-127, 128, (LAYERS, 9, C, C), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    w_scale = torch.rand((LAYERS, C), generator=gen, device="cuda") * 1e-3
+    bias = torch.randn((LAYERS, C), generator=gen, device="cuda") * 0.1
+    stream = torch.cuda.current_stream().cuda_stream
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for lib in libs.values():
+        lib.trunk.argtypes, lib.trunk.restype = [p] * 8 + [i] * 4 + [p], i
+
+    def trunk(lib, x, buf, out, bg, per_launch):
+        act = x.numel()
+        rc = lib.trunk(x.data_ptr(), buf.data_ptr(), buf[act:].data_ptr(), out.data_ptr(),
+                       w.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
+                       buf[2 * act:].data_ptr(), LAYERS, x.shape[0], bg, per_launch, stream)
+        if rc != 0:
+            raise RuntimeError(f"launch failed: {rc}")
+
+    forwards = {}
+    for batch in DXCAT_BATCHES:
+        x = (torch.rand((batch, 8, 8, C), generator=gen, device="cuda") * 2).to(torch.bfloat16)
+        bg = block_size(batch, 64)
+        buf = torch.empty(2 * x.numel() + LAYERS * (batch // bg + 1), device="cuda")
+        out = torch.empty_like(x)
+        key = ("trunk_int8_dxcat", batch)
+        for name, lib in libs.items():
+            forwards[key, name] = (lambda lib=lib, x=x, buf=buf, out=out, bg=bg:
+                                   trunk(lib, x, buf, out, bg, LAYERS))
+        forwards[key, "per_conv"] = (lambda lib=libs["full"], x=x, buf=buf, out=out, bg=bg:
+                                     trunk(lib, x, buf, out, bg, 1))
+        forwards[key, "int8_dx3"] = lambda x=x: trunk_int8_dx3(x, w, w_scale, bias, 64)
+    return forwards
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -253,16 +331,18 @@ def main(argv=None) -> int:
         built = list(pool.map(lambda job: build_variant(*job), jobs))
     for body in bodies:
         libs = {name: lib for (b, name, _), lib in zip(jobs, built) if b == body}
-        forwards = bf16_forwards(libs) if body == "bf16" else int8_forwards(libs)
-        variants = list(BODIES[body][2])
+        forwards = {"bf16": bf16_forwards, "int8": int8_forwards,
+                    "dxcat": dxcat_forwards}[body](libs)
         for kernel in dict.fromkeys(k for k, _ in forwards):
+            variants = [name for k, name in forwards if k == kernel]
             times = {name: [] for name in variants}
             for order in (variants, variants[::-1]):
                 for name in order:
                     times[name].append(time_ms(forwards[kernel, name]))
+            name_batch = kernel if isinstance(kernel, tuple) else (kernel, BATCH)
             for name, ms in times.items():
-                print(json.dumps({"kernel": kernel, "variant": name, "batch": BATCH,
-                                  "ms_per_forward": ms}), flush=True)
+                print(json.dumps({"kernel": name_batch[0], "variant": name,
+                                  "batch": name_batch[1], "ms_per_forward": ms}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     return 0

@@ -3,61 +3,100 @@
 Replaces the Pallas TPU kernel ``_trunk_kernel_int8_dxcat``
 (``othello_reinforcement_learning_test_tpu/models/pallas_resnet.py:377``),
 reached through ``fused_trunk_int8(kernel="dxcat")``. The kernel is
-``csrc/trunk_int8_dxcat.cu``; its note states the bound and the design: the
-three dx-shifted int8 copies lane-concatenated into one (M, 3C) tile, one
-K = 3C product per dy, and the dy shift on the int32 output.
+``csrc/trunk_int8_dxcat.cu``: the whole trunk, pre-pass and every conv, in
+one cooperative launch (``csrc/int8_trunk_sm90.cuh``), with the output
+channels split across CTAs at the gated iteration's small batches. Their
+notes state the bounds and the design. It takes the weights K-major, (L, 9,
+C_out, C_in) with the taps in ``OFFSETS`` order (:func:`dxcat_kmajor` of the
+JAX package's (L, 3, 3C, C) dxcat layout), as an 8-bit wgmma reads them.
 
 It computes the ``int8_dx3`` function (per-block activation scale,
 per-output-channel weight scale; integer sums are exact in any order), so
-its plain version is the plain ``int8_dx3`` trunk on the same weights in
-tap-major rows, and the two agree bit for bit. :func:`trunk_int8_dxcat`
-launches the kernel for a CUDA tensor and uses :func:`trunk_int8_dxcat_plain`
-only for a tensor on the CPU.
+its plain version is the plain ``int8_dx3`` trunk on the same weights, and
+the two agree bit for bit. :func:`trunk_int8_dxcat` launches the kernel for
+a CUDA tensor and uses :func:`trunk_int8_dxcat_plain` only for a tensor on
+the CPU.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from .trunk_int8_dx3 import (block_size, check_int8_args, int8_library, int8_trunk,
-                             launch_int8_trunk)
+from . import build
+from .trunk_int8_dx3 import block_size, check_int8_args, int8_trunk, kmajor_taps
 from .trunk_matmul9 import OFFSETS
 
 DEFAULT_BLOCK_GAMES = 64  # the JAX package's FusedInference default for int8_dxcat
+LAUNCHES_PER_FORWARD = 1  # the whole trunk in one launch
+
+
+def dxcat_kmajor(w: torch.Tensor) -> torch.Tensor:
+    """(L, 3, 3C, C) dxcat weights (dy-major groups, rows (dx block, C_in))
+    -> (L, 9, C_out, C_in): the int8 kernels' K-major layout, one (C_out,
+    C_in) matrix per tap in :data:`OFFSETS` order (dy-major)."""
+    L, _, _, C = w.shape
+    wt = w.reshape(L, 3, 3, C, C)  # (L, dy, dx, C_in, C_out)
+    return wt.transpose(3, 4).reshape(L, 9, C, C).contiguous()
 
 
 def trunk_int8_dxcat_plain(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
                            bias: torch.Tensor,
                            block_games: int = DEFAULT_BLOCK_GAMES) -> torch.Tensor:
     """Plain PyTorch version of the kernel: bf16 (B, S, S, C) in, bf16 out,
-    any S and C; w: (L, 3, 3C, C) int8, whose rows (dy, dx, C_in) are the
-    taps in ``OFFSETS`` order."""
-    L, _, K3, C = w.shape
+    any S and C; w as the kernel takes it, (L, 9, C_out, C_in)."""
     bg = block_size(x.shape[0], block_games)
-    return int8_trunk(x.to(torch.float32), w.reshape(L, 3 * K3, C), OFFSETS, w_scale, bias,
+    return int8_trunk(x.to(torch.float32), kmajor_taps(w), OFFSETS, w_scale, bias,
                       bg).to(torch.bfloat16)
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("trunk_int8_dxcat")
+    if lib.trunk_dxcat.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.trunk_dxcat.argtypes = [p] * 8 + [i] * 3 + [p]
+        lib.trunk_dxcat.restype = i
+    return lib
 
 
 def trunk_int8_dxcat(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
                      bias: torch.Tensor,
                      block_games: int = DEFAULT_BLOCK_GAMES) -> torch.Tensor:
-    """Int8 residual trunk. x: (B, S, S, C) bf16; w: (L, 3, 3C, C) int8,
-    dy-major groups with (dx block, C_in)-major rows; w_scale, bias: (L, C)
-    f32. Returns bf16 (B, S, S, C).
+    """Int8 residual trunk. x: (B, S, S, C) bf16; w: (L, 9, C_out, C_in)
+    int8 K-major weights (:func:`dxcat_kmajor` of the dxcat layout);
+    w_scale, bias: (L, C) f32. Returns bf16 (B, S, S, C).
 
-    On a CUDA tensor this launches the hand-written kernel (one launch per
-    conv, each counted in ``trunk_int8_dxcat.launches``; 8x8 boards and 128
-    channels only) or raises; the plain version runs only for a tensor on
-    the CPU.
+    On a CUDA tensor this makes one host call that launches the hand-written
+    kernel once for the whole trunk (counted in
+    ``trunk_int8_dxcat.launches``; 8x8 boards and 128 channels only) or
+    raises; the plain version runs only for a tensor on the CPU.
     """
-    check_int8_args(x, w, w_scale, bias, lambda C: (3, 3 * C, C))
+    check_int8_args(x, w, w_scale, bias, lambda C: (9, C, C))
     if x.device.type == "cpu":
         return trunk_int8_dxcat_plain(x, w, w_scale, bias, block_games)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    lib = int8_library("trunk_int8_dxcat", "trunk_dxcat")
-    return launch_int8_trunk(trunk_int8_dxcat, lib.trunk_dxcat_prepass, lib.trunk_dxcat_conv,
-                             x, w, w_scale, bias, block_games)
+    B, S, _, C = x.shape
+    if (S, C) != (8, 128):
+        raise ValueError(f"the CUDA kernel takes 8x8 boards and 128 channels, got S={S} C={C}")
+    L = w.shape[0]
+    bg = block_size(B, block_games)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        act = B * S * S * C
+        # the f32 block input and conv 0 output, then the scratch the call
+        # zeroes: the per-block amax of every layer and a barrier counter each
+        buf = torch.empty(2 * act + L * (B // bg) + L, dtype=torch.float32, device=x.device)
+        out = torch.empty_like(x)
+        rc = lib.trunk_dxcat(x.data_ptr(), buf.data_ptr(), buf[act:].data_ptr(),
+                             out.data_ptr(), w.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
+                             buf[2 * act:].data_ptr(), L, B, bg,
+                             torch.cuda.current_stream(x.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"trunk_int8_dxcat failed: CUDA error {rc}")
+        trunk_int8_dxcat.launches += LAUNCHES_PER_FORWARD
+    return out
 
 
 trunk_int8_dxcat.launches = 0

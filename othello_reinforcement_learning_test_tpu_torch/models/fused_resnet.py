@@ -26,10 +26,10 @@ import torch
 
 from ..kernels.trunk_int8 import kmajor_weights, tap_major, trunk_int8
 from ..kernels.trunk_int8_dx3 import dx3_kmajor, trunk_int8_dx3
-from ..kernels.trunk_int8_dxcat import trunk_int8_dxcat
+from ..kernels.trunk_int8_dxcat import dxcat_kmajor, trunk_int8_dxcat
 from ..kernels.trunk_int8_flat import trunk_int8_flat
 from ..kernels.trunk_int8_m9 import trunk_int8_m9
-from ..kernels.trunk_int8_patch import trunk_int8_patch
+from ..kernels.trunk_int8_patch import patch_kmajor, trunk_int8_patch
 from ..kernels.trunk_matmul9 import trunk_matmul9
 from ..kernels.trunk_wide import trunk_wide
 from .resnet import OthelloResNet
@@ -108,6 +108,19 @@ def dxcat_weights(w_int8: torch.Tensor) -> torch.Tensor:
     return wt.permute(0, 2, 3, 1, 4).reshape(L, 3, 3 * C, C).contiguous()
 
 
+def dxcat_kmajor_weights(w_int8: torch.Tensor) -> torch.Tensor:
+    """(L, C, 9C) tap-major int8 weights -> the ``int8_dxcat`` kernel's
+    (L, 9, C_out, C_in): the JAX package's dxcat layout, relaid out K-major."""
+    return dxcat_kmajor(dxcat_weights(w_int8))
+
+
+def patch_kmajor_weights(w_int8: torch.Tensor) -> torch.Tensor:
+    """(L, C, 9C) tap-major int8 weights -> the ``int8_patch`` kernel's
+    (L, 9, C_out, C_in): the JAX package's patch layout (L, 9C, C), relaid
+    out K-major."""
+    return patch_kmajor(tap_major(w_int8))
+
+
 # the int8 kernel variants: the trunk, and how it takes the (L, C, 9C)
 # weights relaid out
 INT8_KERNELS = {
@@ -115,9 +128,9 @@ INT8_KERNELS = {
     "int8_bf16": (functools.partial(trunk_int8, stage_bf16=True), kmajor_weights),
     "int8_dx3": (trunk_int8_dx3, dx3_kmajor_weights),
     "int8_m9": (trunk_int8_m9, m9_weights),
-    "int8_patch": (trunk_int8_patch, tap_major),
+    "int8_patch": (trunk_int8_patch, patch_kmajor_weights),
     "int8_flat": (trunk_int8_flat, tap_major),
-    "int8_dxcat": (trunk_int8_dxcat, dxcat_weights),
+    "int8_dxcat": (trunk_int8_dxcat, dxcat_kmajor_weights),
 }
 
 
@@ -138,12 +151,11 @@ class FusedInference:
     - ``matmul9``: bf16 folded weights (L, 3, 3, C, C), f32 biases (L, C);
     - ``wide``: the same weights as (L, C, 9C); each tap's product is
       rounded to bf16 before the shifted f32 sum;
-    - ``int8``, ``int8_bf16``, ``int8_dx3``: the quantized trunk in the
-      K-major (L, 9, C_out, C_in) layout of the int8 conv body;
-      ``int8_bf16`` rounds each tap's product to bf16;
-    - ``int8_m9`` (L, 9, C, C), ``int8_patch`` and ``int8_flat`` (L, 9C, C),
-      ``int8_dxcat`` (L, 3, 3C, C): the same quantized function, each in its
-      kernel's layout.
+    - ``int8``, ``int8_bf16``, ``int8_dx3``, ``int8_patch``, ``int8_dxcat``:
+      the quantized trunk in the K-major (L, 9, C_out, C_in) layout of the
+      int8 wgmma kernels; ``int8_bf16`` rounds each tap's product to bf16;
+    - ``int8_m9`` (L, 9, C, C), ``int8_flat`` (L, 9C, C): the same quantized
+      function, each in its kernel's layout.
     """
 
     def __init__(self, model: OthelloResNet, variant: str = "int8_dx3",

@@ -7,7 +7,7 @@ Without a card every test skips. Tolerances:
 - ``int8_dx3``, ``trunk_int8`` (both ``stage_bf16`` settings),
   ``int8_m9``, ``int8_patch``, ``int8_flat`` and ``int8_dxcat``: bit-exact (the plain
   versions repeat the kernels' arithmetic, and int32 sums are exact in any
-  order);
+  order); ``int8_dxcat`` also in 200 repeated forwards at B=64 and 40;
 - ``random_step``: boards and ``live`` bit-exact against
   ``random_step_plain`` fed the same random words (integer work);
 - ``matmul9``: the whole trunk equal bit for bit to its 20 convs launched
@@ -42,6 +42,7 @@ from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dx3 import
     trunk_int8_dx3_plain,
 )
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dxcat import (
+    LAUNCHES_PER_FORWARD as DXCAT_LAUNCHES,
     trunk_int8_dxcat,
     trunk_int8_dxcat_plain,
 )
@@ -265,6 +266,15 @@ INT8_KERNELS = {"int8_m9": (trunk_int8_m9, trunk_int8_m9_plain),
                 "int8_dxcat": (trunk_int8_dxcat, trunk_int8_dxcat_plain)}
 
 
+# int8_dxcat launches the whole trunk at once; the others once a conv
+LAUNCHES_PER_FORWARD = {"int8_dxcat": DXCAT_LAUNCHES}
+# the redesigned kernels at chip_smoke.py's batches: int8_dxcat also at the
+# gated iteration's 64 (self-play) and 40 (the gate match, bg 8)
+REDESIGNED_BATCHES = [(v, b) for v, bs in (("int8_patch", (1024, 1040, 267, 24, 3, 1)),
+                                           ("int8_dxcat", (64, 40, 1024, 1040, 267, 24, 3, 1)))
+                      for b in bs]
+
+
 @pytest.fixture(scope="module")
 def int8_model():
     if not torch.cuda.is_available():
@@ -286,12 +296,64 @@ def test_int8_variant_kernels_match_plain(int8_model, variant, batch):
     args = (fused.trunk_w, fused.trunk_scale, fused.trunk_bias)
     before = kernel.launches
     out = kernel(x, *args)
-    assert kernel.launches == before + 20
+    assert kernel.launches == before + LAUNCHES_PER_FORWARD.get(variant, 20)
     assert torch.equal(out, plain(x, *args))
     xb = torch.from_numpy(rng.integers(0, 2, (batch, 8, 8, 3)).astype(np.float32)).cuda()
     lp, v = fused(xb)
     lp_p, v_p = fused.heads(plain(fused.stem(xb), *args))
     assert torch.equal(lp, lp_p) and torch.equal(v, v_p)
+
+
+def post_relu_input(batch: int, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    h = np.abs(rng.standard_normal((batch, 8, 8, 128))) * rng.random((batch, 1, 1, 1)) * 2
+    return torch.from_numpy(h.astype(np.float32)).to(torch.bfloat16).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,batch", REDESIGNED_BATCHES)
+def test_redesigned_int8_kernels_match_plain(int8_model, variant, batch):
+    """The wgmma ``int8_patch`` (the conv body at bg 32) and the one-launch
+    ``int8_dxcat`` trunk, bit for bit, at every batch chip_smoke.py checks
+    (1040: bg 16 and more games than CTAs; 267: an odd count)."""
+    fused = FusedInference(int8_model, variant=variant)
+    kernel, plain = INT8_KERNELS[variant]
+    x = post_relu_input(batch, batch + 1)
+    args = (fused.trunk_w, fused.trunk_scale, fused.trunk_bias)
+    before = kernel.launches
+    out = kernel(x, *args)
+    assert kernel.launches == before + LAUNCHES_PER_FORWARD.get(variant, 20)
+    assert torch.equal(out, plain(x, *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [64, 40])
+def test_dxcat_repeats_match_plain(int8_model, batch):
+    """200 forwards of the one-launch trunk at the gated iteration's
+    batches, each equal to the plain version: a missing fence across the
+    grid barrier would show as a rare wrong int8 code."""
+    fused = FusedInference(int8_model, variant="int8_dxcat")
+    args = (fused.trunk_w, fused.trunk_scale, fused.trunk_bias)
+    x = post_relu_input(batch, 7)
+    want = trunk_int8_dxcat_plain(x, *args)
+    bad = sum(not torch.equal(trunk_int8_dxcat(x, *args), want) for _ in range(200))
+    assert bad == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_blocks", [1, 3])
+@pytest.mark.parametrize("batch", [64, 200])  # channels split across CTAs; whole games
+def test_dxcat_other_depths_match_plain(num_blocks, batch):
+    """The one-launch trunk at other depths (its weight buffers, barriers and
+    prefetch count layers), in both of its modes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    m = OthelloResNet(num_blocks, 128)
+    m.load_state_dict(from_jax_variables(init_numpy_variables(num_blocks, 128, seed=4)))
+    fused = FusedInference(m.cuda().eval(), variant="int8_dxcat")
+    args = (fused.trunk_w, fused.trunk_scale, fused.trunk_bias)
+    x = post_relu_input(batch, num_blocks)
+    assert torch.equal(trunk_int8_dxcat(x, *args), trunk_int8_dxcat_plain(x, *args))
 
 
 @pytest.fixture(scope="module")

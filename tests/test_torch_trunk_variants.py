@@ -13,10 +13,15 @@ Tolerances, each with its reason:
   one multiply-add where the port rounds product and sum, and an ulp of f32
   there can flip an int8 code of the next layer
   (``test_fused_dequant_witness`` there); on the ``wide`` path both sum the
-  same bf16 products in the same f32 order;
-- weight layouts: equal;
+  same bf16 products in the same f32 order. ``int8_dxcat`` at the gate
+  match's 40 games: the same bar with that multiply-add emulated in the plain
+  version, since on this input it flips one code;
+- weight layouts: equal (``int8_patch`` and ``int8_dxcat`` take the K-major
+  (L, 9, C_out, C_in) relayout of the JAX package's patch and dxcat layouts:
+  tap k's (C_out, C_in) matrix is the transpose of that layout's tap-k
+  block);
 - the stage edits of ``kernels/conv_stages.py``: each applies exactly once
-  to its conv body's header;
+  to its header;
 - ``FusedInference`` vs the JAX ``FusedInference(variant, interpret=True)``:
   probabilities atol 0.02 and values atol 0.04 for the int8 variants (the
   repo's bar between int8 trunks), 0.03 and 0.05 for ``wide`` (the JAX
@@ -38,7 +43,9 @@ from othello_reinforcement_learning_test_tpu.models.pallas_resnet import (
 )
 from othello_reinforcement_learning_test_tpu.models.resnet import OthelloResNet as JaxResNet
 from othello_reinforcement_learning_test_tpu_torch.kernels import build, conv_stages
+from othello_reinforcement_learning_test_tpu_torch.kernels import trunk_int8_dx3 as dx3
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dxcat import (
+    dxcat_kmajor,
     trunk_int8_dxcat,
     trunk_int8_dxcat_plain,
 )
@@ -51,6 +58,7 @@ from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_m9 import 
     trunk_int8_m9_plain,
 )
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_patch import (
+    patch_kmajor,
     trunk_int8_patch,
     trunk_int8_patch_plain,
 )
@@ -77,11 +85,14 @@ from othello_reinforcement_learning_test_tpu_torch.models.fused_resnet import (
     DEFAULT_BLOCK_GAMES,
     INT8_KERNELS,
     FusedInference,
+    dxcat_kmajor_weights,
     dxcat_weights,
     fold_block_params,
     fold_block_params_wide,
+    patch_kmajor_weights,
 )
 from othello_reinforcement_learning_test_tpu_torch.models.resnet import OthelloResNet
+from test_torch_trunk_int8 import fused_dequant_conv
 
 NUM_BLOCKS, CHANNELS = 2, 32
 INT8_VARIANTS = {"int8_m9": ("m9", trunk_int8_m9, trunk_int8_m9_plain),
@@ -143,6 +154,27 @@ def test_plain_trunk_matches_pallas_interpret(variant, batch):
     assert (out != ref).mean() < 1e-3
 
 
+def test_dxcat_plain_matches_pallas_interpret_at_the_gate_batch(monkeypatch):
+    """``int8_dxcat`` at the gate match's 40 games (bg 8). On this input one
+    int8 code of the second block flips between the interpreted kernel, whose
+    dequantisation XLA contracts into a multiply-add, and the plain version,
+    which rounds product and sum apart as the CUDA kernel does (every other
+    interpreted int8 kernel gives the interpreted dxcat's output here bit for
+    bit). With that multiply-add emulated (``fused_dequant_conv``, as
+    ``test_torch_trunk_int8.py``'s witness does) the plain version meets the
+    bar of the other batches."""
+    variables = init_numpy_variables(NUM_BLOCKS, CHANNELS, seed=3)
+    ref, args = kernel_args("int8_dxcat", variables, trunk_input(40))
+    ref = np.array(ref.astype(jnp.float32))
+    monkeypatch.setattr(dx3, "int8_conv3x3",
+                        lambda h, taps, offsets, s, b, bg, stage_bf16=False: fused_dequant_conv(
+                            h, taps, offsets, s, b, bg))
+    out = trunk_int8_dxcat_plain(*args).float().numpy()
+    assert out.shape == ref.shape and np.all(np.isfinite(out))
+    assert bf16_ulps(out, ref).max() <= 1
+    assert (out != ref).mean() < 1e-3
+
+
 def test_fold_block_params_wide_matches_jax():
     variables = init_numpy_variables(NUM_BLOCKS, CHANNELS, seed=5)
     jw, jb = j_fold_wide(variables, NUM_BLOCKS)
@@ -162,18 +194,32 @@ def test_fold_block_params_wide_matches_jax():
 def test_int8_relayouts_match_jax(variant):
     """Each kernel's weights as ``fused_trunk_int8`` relays them out
     (``pallas_resnet.py:522-525`` for m9, ``:537-547`` for dxcat, ``:548-553``
-    for patch and flat)."""
+    for patch and flat); ``int8_patch`` and ``int8_dxcat`` take that layout
+    relaid out K-major, tap k's (C_out, C_in) matrix the transpose of its
+    tap-k block, taps in ``OFFSETS`` order."""
     variables = init_numpy_variables(NUM_BLOCKS, CHANNELS, seed=7)
     jqt = jq.quantize_trunk(variables, NUM_BLOCKS)
     L, C = 2 * NUM_BLOCKS, CHANNELS
+    w_int8 = torch.from_numpy(np.array(jqt.w_int8))
     if variant == "int8_m9":
         want = jqt.w_int8.reshape(L, C, 9, C).transpose(0, 2, 1, 3)
     elif variant == "int8_dxcat":
-        want = jqt.w_int8.reshape(L, C, 3, 3, C).transpose(0, 2, 3, 1, 4).reshape(L, 3, 3 * C, C)
-        assert torch.equal(dxcat_weights(torch.from_numpy(np.array(jqt.w_int8))),
-                           torch.from_numpy(np.array(want)))
+        jax_w = jqt.w_int8.reshape(L, C, 3, 3, C).transpose(0, 2, 3, 1, 4).reshape(L, 3, 3 * C, C)
+        assert torch.equal(dxcat_weights(w_int8), torch.from_numpy(np.array(jax_w)))
+        want = dxcat_kmajor(torch.from_numpy(np.array(jax_w))).numpy()
+        assert np.array_equal(dxcat_kmajor_weights(w_int8).numpy(), want)
+        for k, (dy, dx) in enumerate(OFFSETS):  # tap k: group dy, row block dx
+            np.testing.assert_array_equal(
+                want[:, k], np.array(jax_w)[:, 1 + dy, (1 + dx) * C:(2 + dx) * C].transpose(0, 2, 1))
     else:
-        want = jqt.w_int8.reshape(L, C, 9, C).transpose(0, 2, 1, 3).reshape(L, 9 * C, C)
+        jax_w = jqt.w_int8.reshape(L, C, 9, C).transpose(0, 2, 1, 3).reshape(L, 9 * C, C)
+        want = jax_w
+        if variant == "int8_patch":
+            want = patch_kmajor(torch.from_numpy(np.array(jax_w))).numpy()
+            assert np.array_equal(patch_kmajor_weights(w_int8).numpy(), want)
+            for k in range(9):  # tap k: rows [k*C, (k+1)*C)
+                np.testing.assert_array_equal(
+                    want[:, k], np.array(jax_w)[:, k * C:(k + 1) * C].transpose(0, 2, 1))
     fused = FusedInference(port_model(variables), variant=variant)
     assert fused.trunk_w.dtype == torch.int8 and fused.trunk_w.is_contiguous()
     np.testing.assert_array_equal(fused.trunk_w.numpy(), np.array(want))
@@ -319,6 +365,17 @@ def test_conv_stage_edits_apply_to_the_int8_conv_body(variant):
     text = (build.CSRC_DIR / conv_stages.INT8_HEADER).read_text()
     edited = conv_stages.variant_header(text, conv_stages.INT8_VARIANTS[variant],
                                         conv_stages.INT8_STAGE_EDITS, conv_stages.INT8_HEADER)
+    assert (edited == text) == (variant == "full")
+
+
+@pytest.mark.parametrize("variant", list(conv_stages.TRUNK_VARIANTS))
+def test_conv_stage_edits_apply_to_the_one_launch_trunk(variant):
+    """The same for ``int8_dxcat``'s one-launch trunk (``--body dxcat``):
+    each edit of ``TRUNK_STAGE_EDITS`` applies exactly once to its header,
+    and only ``full`` leaves it as it is."""
+    text = (build.CSRC_DIR / conv_stages.TRUNK_HEADER).read_text()
+    edited = conv_stages.variant_header(text, conv_stages.TRUNK_VARIANTS[variant],
+                                        conv_stages.TRUNK_STAGE_EDITS, conv_stages.TRUNK_HEADER)
     assert (edited == text) == (variant == "full")
 
 
