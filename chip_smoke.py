@@ -14,8 +14,9 @@ each as they finish:
                  ``csrc/`` with nvcc, in parallel; ptxas registers and
                  shared memory; for ``trunk_matmul9`` and ``trunk_wide``
                  their HGMMA (bf16 wgmma) count from ``cuobjdump -sass``,
-                 for ``trunk_int8_dx3``, ``trunk_int8``, ``trunk_int8_patch``
-                 and ``trunk_int8_dxcat`` their IGMMA (integer wgmma) count;
+                 for ``trunk_int8_dx3``, ``trunk_int8``, ``trunk_int8_m9``,
+                 ``trunk_int8_patch``, ``trunk_int8_flat`` and
+                 ``trunk_int8_dxcat`` their IGMMA (integer wgmma) count;
                  none may be 0;
 3. kernel_check  the ``int8_dx3`` trunk kernel against its plain PyTorch
                  version on the card, at B=1024 (bg 64), B=1040 (bg 16,
@@ -60,15 +61,19 @@ each as they finish:
                  ``trunk_int8_patch``, ``trunk_int8_flat`` and
                  ``trunk_int8_dxcat`` against their plain version (the plain
                  ``int8_dx3`` trunk on the kernel's weights) bit for bit:
-                 ``m9`` and ``flat`` at B=1024 (bg 32), 24 (bg 8) and 3 (bg
-                 1); ``patch`` at B=1024, 1040, 267, 24, 3 and 1;
+                 ``m9``, ``patch`` and ``flat`` (the int8 conv body at bg
+                 32) at B=1024, 1040, 267, 24, 3 and 1;
                  ``dxcat`` (the whole trunk in one launch) at its gated
                  path's B=64 (bg 64) and 40 (bg 8) and at 1024, 1040, 267,
                  24, 3 and 1, then 200 forwards each at B=64 and 40, every
                  one equal to the plain output (a missing fence across its
                  grid barrier would flip a rare int8 code); launches 20 a
                  forward (``dxcat``: 1); FusedInference with each against
-                 the plain trunk: equal. Then ``random_step`` against ``random_step_plain``
+                 the plain trunk: equal; then ``m9``, ``patch`` and
+                 ``flat`` taking turns on one weight tensor at B=64, its
+                 contents rewritten in place after the first round (each
+                 library caches its weight maps by address): equal to
+                 the plain version. Then ``random_step`` against ``random_step_plain``
                  on the card, fed the same words, every ply of 4,096 games
                  to their end for sizes 8, 6 and 4 under both rule sets,
                  then of the bench's 4,194,304 games at 8x8: bit-exact
@@ -130,10 +135,12 @@ each as they finish:
                  time, device-busy time and idle share, time by kernel;
 11. timing       the eight trunk kernels and their plain versions at B=1024
                  and, for ``matmul9`` and ``wide``, the same folded tower as
-                 20 cuDNN convolutions; for those two, ``int8_dx3`` and
-                 ``trunk_int8`` the kernel's device time per forward from
-                 torch.profiler, and for the int8 two also the bytes floor
-                 of their f32-activation structure (also ``int8_patch``);
+                 20 cuDNN convolutions; for those two, ``int8_dx3``,
+                 ``trunk_int8``, ``int8_m9``, ``int8_patch`` and
+                 ``int8_flat`` the kernel's device time per forward from
+                 torch.profiler (summed and first-to-last span), and for
+                 the int8 ones also the bytes floor of their f32-activation
+                 structure;
                  ``int8_dxcat`` also at its gated path's batches, 64 and 40,
                  wall and device time at 64, 40 and 1024, and ``int8_dx3``
                  at B=64; ``random_step`` and its plain version for one
@@ -260,8 +267,10 @@ INT8_VARIANTS = {"int8_m9": (trunk_int8_m9, trunk_int8_m9_plain, 192),
                  "int8_flat": (trunk_int8_flat, trunk_int8_flat_plain, 264),
                  "int8_dxcat": (trunk_int8_dxcat, trunk_int8_dxcat_plain, 377)}
 # the batches each is checked at
-VARIANT_BATCHES = {"int8_m9": (GAMES, 24, 3), "int8_patch": INT8_BATCHES,
-                   "int8_flat": (GAMES, 24, 3), "int8_dxcat": GATE_BATCHES + INT8_BATCHES}
+VARIANT_BATCHES = {"int8_m9": INT8_BATCHES, "int8_patch": INT8_BATCHES,
+                   "int8_flat": INT8_BATCHES, "int8_dxcat": GATE_BATCHES + INT8_BATCHES}
+# the variants that are the int8 conv body at bg 32, each its own library
+BODY_BG32 = ("int8_m9", "int8_patch", "int8_flat")
 # benchmark_model.py --fused over every variant the port has
 BENCH_VARIANTS = ("matmul9", "wide", "int8", "int8_bf16", "int8_m9", "int8_patch", "int8_flat",
                   "int8_dx3", "int8_dxcat", "int8_xla")
@@ -415,12 +424,13 @@ def wgmma_evidence(builds: dict) -> None:
     """The wgmma trunks' wgmma instruction count from ``cuobjdump -sass``,
     where the toolkit has it (their ptxas report is in the build lines):
     HGMMA (bf16) in ``trunk_matmul9`` and ``trunk_wide``, IGMMA (s8) in
-    ``trunk_int8_dx3``, ``trunk_int8``, ``trunk_int8_patch`` and
-    ``trunk_int8_dxcat``."""
+    ``trunk_int8_dx3``, ``trunk_int8``, ``trunk_int8_m9``,
+    ``trunk_int8_patch``, ``trunk_int8_flat`` and ``trunk_int8_dxcat``."""
     cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
     for kname, op in (("trunk_matmul9", "HGMMA"), ("trunk_wide", "HGMMA"),
                       ("trunk_int8_dx3", "IGMMA"), ("trunk_int8", "IGMMA"),
-                      ("trunk_int8_patch", "IGMMA"), ("trunk_int8_dxcat", "IGMMA")):
+                      ("trunk_int8_m9", "IGMMA"), ("trunk_int8_patch", "IGMMA"),
+                      ("trunk_int8_flat", "IGMMA"), ("trunk_int8_dxcat", "IGMMA")):
         count = "not measured"
         if cuobjdump.is_file():
             sass = subprocess.run([str(cuobjdump), "-sass", str(builds[kname].path)],
@@ -627,6 +637,22 @@ def check_int8_variants(model, feats) -> dict:
         check(torch.equal(lp_k, lp_p) and torch.equal(v_k, v_p),
               f"FusedInference({variant}) kernel == plain trunk")
         out[variant] = (err, fused)
+    # the bg-32 instances of the conv body, each library with its own weight
+    # maps keyed on the address, taking turns on one weight tensor whose
+    # contents are rewritten in place between rounds
+    fp = out["int8_patch"][1]
+    w = fp.trunk_w.clone()
+    h = fp.stem(feats[:GATE_BATCHES[0]])
+    for step in range(2):
+        if step:
+            w.copy_(w.flip(2))  # other weights, the same address
+        for variant in BODY_BG32:
+            kernel, plain, _ = INT8_VARIANTS[variant]
+            args = (w, fp.trunk_scale, fp.trunk_bias, fp.block_games)
+            check(torch.equal(kernel(h, *args), plain(h, *args)),
+                  f"{kernel.__name__} == plain on weights rewritten at one address ({step})")
+    phase("kernel_check", what="int8 conv body libraries on one weight address rewritten",
+          kernels=[INT8_VARIANTS[v][0].__name__ for v in BODY_BG32], rounds=2, equal=True)
     return out
 
 
@@ -1344,7 +1370,7 @@ def main() -> int:
         check(torch.equal(kernel(hv, *args), plain(hv, *args)), f"timed {variant} == plain")
     # int8_dxcat's main path, the gated iteration, runs at its self-play and
     # gate-match batches; the int8 conv body as int8_dx3 launches it at the
-    # first of them; int8_patch's device time at B=1024
+    # first of them; the device time of int8_m9, int8_patch and int8_flat at B=1024
     check(STRONG["self_play"]["num_parallel_games"] == GATE_BATCHES[0]
           and STRONG["training"]["gating"]["games"] == GATE_BATCHES[1], "the gated batches")
     fx = variants["int8_dxcat"][1]
@@ -1363,9 +1389,12 @@ def main() -> int:
                  **trunk_device_ms(lambda: trunk_int8_dx3(h_small, w, ws, b), INT8_DEVICE_NAMES),
                  "bound_ms": trunk_bound_ms(GATE_BATCHES[0], layers, NUM_FILTERS)[0],
                  "bytes_floor_ms": int8_bytes_floor_ms(GATE_BATCHES[0], layers, NUM_FILTERS)}
-    fp = variants["int8_patch"][1]
-    hp, fp_args = fp.stem(feats), (fp.trunk_w, fp.trunk_scale, fp.trunk_bias, fp.block_games)
-    patch_device = trunk_device_ms(lambda: trunk_int8_patch(hp, *fp_args), INT8_DEVICE_NAMES)
+    body_device = {}
+    for variant in BODY_BG32:
+        fv = variants[variant][1]
+        hv, args = fv.stem(feats), (fv.trunk_w, fv.trunk_scale, fv.trunk_bias, fv.block_games)
+        body_device[variant] = trunk_device_ms(lambda: INT8_VARIANTS[variant][0](hv, *args),
+                                               INT8_DEVICE_NAMES)
     boards = random_positions(engine, GAMES, 20, rng, dev)
     phase("profile", what=f"one search at B={GAMES}, {SIMS} simulations, 20 plies in",
           **profile_search(engine, fused, boards))
@@ -1392,8 +1421,7 @@ def main() -> int:
           "the wide trunk's weights")
     for variant, (k_ms, p_ms, f_ms) in variant_ms.items():
         at_path = ({"path_batches": dxcat_path} if variant == "int8_dxcat"
-                   else {**patch_device, "bytes_floor_ms": int8_floor_ms}
-                   if variant == "int8_patch" else {})
+                   else {**body_device[variant], "bytes_floor_ms": int8_floor_ms})
         phase("timing", kernel=INT8_VARIANTS[variant][0].__name__, batch=GAMES,
               block_games=block_size(GAMES, variants[variant][1].block_games), kernel_ms=k_ms,
               plain_ms=p_ms,

@@ -1,9 +1,10 @@
 // The conv body the int8 trunk kernels share (trunk_int8_dx3.cu,
-// trunk_int8.cu, trunk_int8_patch.cu; int8_trunk_sm90.cuh, the one-launch
-// trunk, takes its pieces), for Hopper (sm_90a): one 3x3 conv of 8x8 boards, C = 128
-// channels in and out, of the quantized trunk, with the dequantisation, the
-// bias, the residual add (conv 1 of a block), ReLU and the next layer's
-// per-block amax fused. For each block of `bg` games:
+// trunk_int8.cu, trunk_int8_m9.cu, trunk_int8_patch.cu, trunk_int8_flat.cu;
+// int8_trunk_sm90.cuh, the one-launch trunk, takes its pieces), for Hopper
+// (sm_90a): one 3x3 conv of 8x8 boards, C = 128 channels in and out, of
+// the quantized trunk, with the dequantisation, the bias, the residual add
+// (conv 1 of a block), ReLU and the next layer's per-block amax fused.
+// For each block of `bg` games:
 //
 //   s_act = max(amax|h| over the block, 1e-8) / 127
 //   q     = clip(rint(h / s_act), -127, 127)          (int8, true division)
@@ -78,7 +79,11 @@
 
 namespace int8conv {
 // internal linkage: a function-local static of a template with external
-// linkage is one object across every loaded library that instantiates it
+// linkage is one object across every loaded library that instantiates it,
+// so each library that includes this body keeps its own launch state
+// and weight maps. A map is keyed on the weights' pointer and row count, the
+// only fields of its layout that vary, so a new weight tensor at a reused
+// address is served a map equal to the one it would encode
 namespace {
 
 using namespace sm90;

@@ -1,11 +1,10 @@
 // Pieces shared by the int8 trunk kernels (through int8_conv_sm90.cuh:
-// trunk_int8_dx3.cu, trunk_int8.cu, trunk_int8_patch.cu, trunk_int8_dxcat.cu;
-// directly: trunk_int8_m9.cu, trunk_int8_flat.cu):
-// the activation scale and quantisation, the s8 mma.sync, the warp max, and
-// the pre-pass that converts the bf16 trunk input to f32 and reduces the
-// first layer's per-block amax. Included inside each kernel's anonymous
-// namespace, after <cuda_bf16.h>, <cuda_runtime.h> and <stdint.h>; the
-// board and channel sizes are those of the 10x128 network.
+// trunk_int8_dx3.cu, trunk_int8.cu, trunk_int8_m9.cu, trunk_int8_patch.cu,
+// trunk_int8_flat.cu, trunk_int8_dxcat.cu): the activation scale, the warp
+// max, and the pre-pass that converts the bf16 trunk input to f32 and
+// reduces the first layer's per-block amax. Included inside the conv body's
+// anonymous namespace, after <cuda_bf16.h> and <cuda_runtime.h>; the board
+// and channel sizes are those of the 10x128 network.
 
 #pragma once
 
@@ -16,31 +15,6 @@ constexpr int THREADS = 256;  // 8 warps
 
 __device__ __forceinline__ float act_scale(float amax) {
   return __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f);
-}
-
-__device__ __forceinline__ uint32_t quant4(float4 v, float s) {
-  const float f[4] = {v.x, v.y, v.z, v.w};
-  uint32_t out = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float r = rintf(__fdiv_rn(f[i], s));
-    r = fminf(fmaxf(r, -127.0f), 127.0f);
-    out |= (static_cast<uint32_t>(static_cast<int>(r)) & 0xFFu) << (8 * i);
-  }
-  return out;
-}
-
-__device__ __forceinline__ uint32_t ld32(const unsigned char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ float warp_max(float m) {

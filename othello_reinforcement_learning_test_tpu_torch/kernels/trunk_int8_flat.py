@@ -3,16 +3,22 @@
 Replaces the Pallas TPU kernel ``_trunk_kernel_int8_flat``
 (``othello_reinforcement_learning_test_tpu/models/pallas_resnet.py:264``),
 reached through ``fused_trunk_int8(kernel="flat")``. The kernel is
-``csrc/trunk_int8_flat.cu``; its note states the bound and the design:
-an int8 im2col patch of masked flat row shifts (no spatial padding), then
-one (rows, 9C) @ (9C, C) product.
+``csrc/trunk_int8_flat.cu``, one launch of the int8 conv body
+``csrc/int8_conv_sm90.cuh`` per conv at the variant's block of 32 games:
+the Pallas kernel's patch of masked flat row shifts reads zero exactly where
+the body's zero-padded tile has its halo, so its K = 9C product is the
+body's 36 wgmma k-steps from nine offsets into that tile. Their notes state
+the bounds and the design. It takes the weights K-major, (L, 9, C_out, C_in)
+with the taps in ``OFFSETS`` order (:func:`~.trunk_int8_patch.patch_kmajor`
+of the JAX package's (L, 9C, C) flat layout, which is the patch layout), as
+an 8-bit wgmma reads them.
 
 It computes the ``int8_dx3`` function (per-block activation scale,
 per-output-channel weight scale; integer sums are exact in any order), so
-its plain version is the plain ``int8_dx3`` trunk on the same tap-major
-weights, and the two agree bit for bit. :func:`trunk_int8_flat` launches
-the kernel for a CUDA tensor and uses :func:`trunk_int8_flat_plain` only
-for a tensor on the CPU.
+its plain version is the plain ``int8_dx3`` trunk on the same weights, and
+the two agree bit for bit. :func:`trunk_int8_flat` launches the kernel for
+a CUDA tensor and uses :func:`trunk_int8_flat_plain` only for a tensor on
+the CPU.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from .trunk_int8_dx3 import (block_size, check_int8_args, int8_library, int8_trunk,
-                             launch_int8_trunk)
+                             kmajor_taps, launch_int8_trunk)
 from .trunk_matmul9 import OFFSETS
 
 DEFAULT_BLOCK_GAMES = 32  # the JAX package's FusedInference default for int8_flat
@@ -30,22 +36,24 @@ def trunk_int8_flat_plain(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tenso
                           bias: torch.Tensor,
                           block_games: int = DEFAULT_BLOCK_GAMES) -> torch.Tensor:
     """Plain PyTorch version of the kernel: bf16 (B, S, S, C) in, bf16 out,
-    any S and C; w: (L, 9C, C) int8, rows in ``OFFSETS`` order then C_in."""
+    any S and C; w as the kernel takes it, (L, 9, C_out, C_in)."""
     bg = block_size(x.shape[0], block_games)
-    return int8_trunk(x.to(torch.float32), w, OFFSETS, w_scale, bias, bg).to(torch.bfloat16)
+    return int8_trunk(x.to(torch.float32), kmajor_taps(w), OFFSETS, w_scale, bias,
+                      bg).to(torch.bfloat16)
 
 
 def trunk_int8_flat(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
                     bias: torch.Tensor, block_games: int = DEFAULT_BLOCK_GAMES) -> torch.Tensor:
-    """Int8 residual trunk. x: (B, S, S, C) bf16; w: (L, 9C, C) int8
-    tap-major rows; w_scale, bias: (L, C) f32. Returns bf16 (B, S, S, C).
+    """Int8 residual trunk. x: (B, S, S, C) bf16; w: (L, 9, C_out, C_in)
+    int8 K-major weights (:func:`~.trunk_int8_patch.patch_kmajor` of the
+    flat layout); w_scale, bias: (L, C) f32. Returns bf16 (B, S, S, C).
 
     On a CUDA tensor this launches the hand-written kernel (one launch per
     conv, each counted in ``trunk_int8_flat.launches``; 8x8 boards and 128
     channels only) or raises; the plain version runs only for a tensor on
     the CPU.
     """
-    check_int8_args(x, w, w_scale, bias, lambda C: (9 * C, C))
+    check_int8_args(x, w, w_scale, bias, lambda C: (9, C, C))
     if x.device.type == "cpu":
         return trunk_int8_flat_plain(x, w, w_scale, bias, block_games)
     if x.device.type != "cuda":

@@ -28,7 +28,7 @@ from ..kernels.trunk_int8 import kmajor_weights, tap_major, trunk_int8
 from ..kernels.trunk_int8_dx3 import dx3_kmajor, trunk_int8_dx3
 from ..kernels.trunk_int8_dxcat import dxcat_kmajor, trunk_int8_dxcat
 from ..kernels.trunk_int8_flat import trunk_int8_flat
-from ..kernels.trunk_int8_m9 import trunk_int8_m9
+from ..kernels.trunk_int8_m9 import m9_kmajor, trunk_int8_m9
 from ..kernels.trunk_int8_patch import patch_kmajor, trunk_int8_patch
 from ..kernels.trunk_matmul9 import trunk_matmul9
 from ..kernels.trunk_wide import trunk_wide
@@ -79,13 +79,6 @@ def fold_block_params_wide(model: OthelloResNet) -> Tuple[torch.Tensor, torch.Te
     return w.reshape(L, 9, C, C).permute(0, 2, 1, 3).reshape(L, C, 9 * C).contiguous(), b
 
 
-def m9_weights(w_int8: torch.Tensor) -> torch.Tensor:
-    """(L, C, 9C) tap-major int8 weights -> (L, 9, C, C): one square
-    (C_in, C_out) matrix per tap, as ``fused_trunk_int8(kernel="m9")``."""
-    L, C, _ = w_int8.shape
-    return w_int8.reshape(L, C, 9, C).permute(0, 2, 1, 3).contiguous()
-
-
 def dx3_weights(w_int8: torch.Tensor) -> torch.Tensor:
     """(L, C, 9C) tap-major int8 weights (tap k = 3*(dy+1) + dx+1) ->
     (L, 3, C, 3C): dx-major groups, dy-minor column blocks in each group."""
@@ -115,10 +108,18 @@ def dxcat_kmajor_weights(w_int8: torch.Tensor) -> torch.Tensor:
 
 
 def patch_kmajor_weights(w_int8: torch.Tensor) -> torch.Tensor:
-    """(L, C, 9C) tap-major int8 weights -> the ``int8_patch`` kernel's
-    (L, 9, C_out, C_in): the JAX package's patch layout (L, 9C, C), relaid
-    out K-major."""
+    """(L, C, 9C) tap-major int8 weights -> the ``int8_patch`` and
+    ``int8_flat`` kernels' (L, 9, C_out, C_in): the JAX package's patch and
+    flat layout (L, 9C, C), relaid out K-major."""
     return patch_kmajor(tap_major(w_int8))
+
+
+def m9_kmajor_weights(w_int8: torch.Tensor) -> torch.Tensor:
+    """(L, C, 9C) tap-major int8 weights -> the ``int8_m9`` kernel's
+    (L, 9, C_out, C_in): the JAX package's m9 layout (L, 9, C_in, C_out),
+    one square matrix a tap, relaid out K-major."""
+    L, C, _ = w_int8.shape
+    return m9_kmajor(w_int8.reshape(L, C, 9, C).permute(0, 2, 1, 3))
 
 
 # the int8 kernel variants: the trunk, and how it takes the (L, C, 9C)
@@ -127,9 +128,9 @@ INT8_KERNELS = {
     "int8": (trunk_int8, kmajor_weights),
     "int8_bf16": (functools.partial(trunk_int8, stage_bf16=True), kmajor_weights),
     "int8_dx3": (trunk_int8_dx3, dx3_kmajor_weights),
-    "int8_m9": (trunk_int8_m9, m9_weights),
+    "int8_m9": (trunk_int8_m9, m9_kmajor_weights),
     "int8_patch": (trunk_int8_patch, patch_kmajor_weights),
-    "int8_flat": (trunk_int8_flat, tap_major),
+    "int8_flat": (trunk_int8_flat, patch_kmajor_weights),
     "int8_dxcat": (trunk_int8_dxcat, dxcat_kmajor_weights),
 }
 
@@ -151,11 +152,11 @@ class FusedInference:
     - ``matmul9``: bf16 folded weights (L, 3, 3, C, C), f32 biases (L, C);
     - ``wide``: the same weights as (L, C, 9C); each tap's product is
       rounded to bf16 before the shifted f32 sum;
-    - ``int8``, ``int8_bf16``, ``int8_dx3``, ``int8_patch``, ``int8_dxcat``:
-      the quantized trunk in the K-major (L, 9, C_out, C_in) layout of the
-      int8 wgmma kernels; ``int8_bf16`` rounds each tap's product to bf16;
-    - ``int8_m9`` (L, 9, C, C), ``int8_flat`` (L, 9C, C): the same quantized
-      function, each in its kernel's layout.
+    - ``int8``, ``int8_bf16``, ``int8_dx3``, ``int8_m9``, ``int8_patch``,
+      ``int8_flat``, ``int8_dxcat``: the quantized trunk in the K-major
+      (L, 9, C_out, C_in) layout of the int8 wgmma kernels, each relaid out
+      from the JAX package's layout for that variant; ``int8_bf16`` rounds
+      each tap's product to bf16.
     """
 
     def __init__(self, model: OthelloResNet, variant: str = "int8_dx3",

@@ -7,7 +7,9 @@ Without a card every test skips. Tolerances:
 - ``int8_dx3``, ``trunk_int8`` (both ``stage_bf16`` settings),
   ``int8_m9``, ``int8_patch``, ``int8_flat`` and ``int8_dxcat``: bit-exact (the plain
   versions repeat the kernels' arithmetic, and int32 sums are exact in any
-  order); ``int8_dxcat`` also in 200 repeated forwards at B=64 and 40;
+  order); ``int8_dxcat`` also in 200 repeated forwards at B=64 and 40; the
+  three bg-32 instances of the int8 conv body also taking turns on one
+  weight tensor rewritten in place;
 - ``random_step``: boards and ``live`` bit-exact against
   ``random_step_plain`` fed the same random words (integer work);
 - ``matmul9``: the whole trunk equal bit for bit to its 20 convs launched
@@ -270,8 +272,11 @@ INT8_KERNELS = {"int8_m9": (trunk_int8_m9, trunk_int8_m9_plain),
 LAUNCHES_PER_FORWARD = {"int8_dxcat": DXCAT_LAUNCHES}
 # the redesigned kernels at chip_smoke.py's batches: int8_dxcat also at the
 # gated iteration's 64 (self-play) and 40 (the gate match, bg 8)
-REDESIGNED_BATCHES = [(v, b) for v, bs in (("int8_patch", (1024, 1040, 267, 24, 3, 1)),
-                                           ("int8_dxcat", (64, 40, 1024, 1040, 267, 24, 3, 1)))
+BODY_BATCHES = (1024, 1040, 267, 24, 3, 1)
+REDESIGNED_BATCHES = [(v, b) for v, bs in (("int8_m9", BODY_BATCHES),
+                                           ("int8_patch", BODY_BATCHES),
+                                           ("int8_flat", BODY_BATCHES),
+                                           ("int8_dxcat", (64, 40) + BODY_BATCHES))
                       for b in bs]
 
 
@@ -313,9 +318,10 @@ def post_relu_input(batch: int, seed: int) -> torch.Tensor:
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant,batch", REDESIGNED_BATCHES)
 def test_redesigned_int8_kernels_match_plain(int8_model, variant, batch):
-    """The wgmma ``int8_patch`` (the conv body at bg 32) and the one-launch
-    ``int8_dxcat`` trunk, bit for bit, at every batch chip_smoke.py checks
-    (1040: bg 16 and more games than CTAs; 267: an odd count)."""
+    """The wgmma ``int8_m9``, ``int8_patch`` and ``int8_flat`` (the conv body
+    at bg 32) and the one-launch ``int8_dxcat`` trunk, bit for bit, at every
+    batch chip_smoke.py checks (1040: bg 16 and more games than CTAs; 267:
+    an odd count)."""
     fused = FusedInference(int8_model, variant=variant)
     kernel, plain = INT8_KERNELS[variant]
     x = post_relu_input(batch, batch + 1)
@@ -324,6 +330,25 @@ def test_redesigned_int8_kernels_match_plain(int8_model, variant, batch):
     out = kernel(x, *args)
     assert kernel.launches == before + LAUNCHES_PER_FORWARD.get(variant, 20)
     assert torch.equal(out, plain(x, *args))
+
+
+@pytest.mark.cuda
+def test_conv_body_libraries_take_new_weights_at_one_address(int8_model):
+    """Three libraries instantiate the int8 conv body at bg 32 (``int8_m9``,
+    ``int8_patch``, ``int8_flat``), each with its own cache of weight maps
+    keyed on the weights' address. Taking turns on one weight tensor whose
+    contents are rewritten in place between calls, each kernel still equals
+    its plain version on the new weights."""
+    fused = FusedInference(int8_model, variant="int8_patch")
+    w = fused.trunk_w.clone()
+    args = (fused.trunk_scale, fused.trunk_bias)
+    x = post_relu_input(64, 9)
+    for step in range(2):
+        if step:
+            w.copy_(w.flip(2))  # other weights, the same address
+        for variant in ("int8_m9", "int8_patch", "int8_flat"):
+            kernel, plain = INT8_KERNELS[variant]
+            assert torch.equal(kernel(x, w, *args), plain(x, w, *args)), (variant, step)
 
 
 @pytest.mark.cuda

@@ -16,10 +16,13 @@ Tolerances, each with its reason:
   same bf16 products in the same f32 order. ``int8_dxcat`` at the gate
   match's 40 games: the same bar with that multiply-add emulated in the plain
   version, since on this input it flips one code;
-- weight layouts: equal (``int8_patch`` and ``int8_dxcat`` take the K-major
-  (L, 9, C_out, C_in) relayout of the JAX package's patch and dxcat layouts:
-  tap k's (C_out, C_in) matrix is the transpose of that layout's tap-k
-  block);
+- weight layouts: equal (``int8_m9``, ``int8_patch``, ``int8_flat`` and
+  ``int8_dxcat`` take the K-major (L, 9, C_out, C_in) relayout of the JAX
+  package's m9, patch (= flat) and dxcat layouts: tap k's (C_out, C_in)
+  matrix is the transpose of that layout's tap-k block);
+- the five variants of the int8 conv body (``int8_dx3``, ``int8``,
+  ``int8_patch``, ``int8_m9``, ``int8_flat``), plain versions on the same
+  quantized weights through each one's own relayout: equal;
 - the stage edits of ``kernels/conv_stages.py``: each applies exactly once
   to its header;
 - ``FusedInference`` vs the JAX ``FusedInference(variant, interpret=True)``:
@@ -44,6 +47,9 @@ from othello_reinforcement_learning_test_tpu.models.pallas_resnet import (
 from othello_reinforcement_learning_test_tpu.models.resnet import OthelloResNet as JaxResNet
 from othello_reinforcement_learning_test_tpu_torch.kernels import build, conv_stages
 from othello_reinforcement_learning_test_tpu_torch.kernels import trunk_int8_dx3 as dx3
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dx3 import (
+    trunk_int8_dx3_plain,
+)
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_dxcat import (
     dxcat_kmajor,
     trunk_int8_dxcat,
@@ -53,7 +59,9 @@ from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_flat impor
     trunk_int8_flat,
     trunk_int8_flat_plain,
 )
+from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8 import trunk_int8_plain
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8_m9 import (
+    m9_kmajor,
     trunk_int8_m9,
     trunk_int8_m9_plain,
 )
@@ -89,6 +97,7 @@ from othello_reinforcement_learning_test_tpu_torch.models.fused_resnet import (
     dxcat_weights,
     fold_block_params,
     fold_block_params_wide,
+    m9_kmajor_weights,
     patch_kmajor_weights,
 )
 from othello_reinforcement_learning_test_tpu_torch.models.resnet import OthelloResNet
@@ -194,15 +203,19 @@ def test_fold_block_params_wide_matches_jax():
 def test_int8_relayouts_match_jax(variant):
     """Each kernel's weights as ``fused_trunk_int8`` relays them out
     (``pallas_resnet.py:522-525`` for m9, ``:537-547`` for dxcat, ``:548-553``
-    for patch and flat); ``int8_patch`` and ``int8_dxcat`` take that layout
-    relaid out K-major, tap k's (C_out, C_in) matrix the transpose of its
-    tap-k block, taps in ``OFFSETS`` order."""
+    for patch and flat), relaid out K-major: tap k's (C_out, C_in) matrix is
+    the transpose of that layout's tap-k block, taps in ``OFFSETS`` order;
+    and ``FusedInference``'s ``trunk_w``."""
     variables = init_numpy_variables(NUM_BLOCKS, CHANNELS, seed=7)
     jqt = jq.quantize_trunk(variables, NUM_BLOCKS)
     L, C = 2 * NUM_BLOCKS, CHANNELS
     w_int8 = torch.from_numpy(np.array(jqt.w_int8))
     if variant == "int8_m9":
-        want = jqt.w_int8.reshape(L, C, 9, C).transpose(0, 2, 1, 3)
+        jax_w = np.array(jqt.w_int8.reshape(L, C, 9, C).transpose(0, 2, 1, 3))
+        want = m9_kmajor(torch.from_numpy(jax_w)).numpy()
+        assert np.array_equal(m9_kmajor_weights(w_int8).numpy(), want)
+        for k in range(9):  # tap k: the (C_in, C_out) matrix jax_w[:, k]
+            np.testing.assert_array_equal(want[:, k], jax_w[:, k].transpose(0, 2, 1))
     elif variant == "int8_dxcat":
         jax_w = jqt.w_int8.reshape(L, C, 3, 3, C).transpose(0, 2, 3, 1, 4).reshape(L, 3, 3 * C, C)
         assert torch.equal(dxcat_weights(w_int8), torch.from_numpy(np.array(jax_w)))
@@ -211,19 +224,45 @@ def test_int8_relayouts_match_jax(variant):
         for k, (dy, dx) in enumerate(OFFSETS):  # tap k: group dy, row block dx
             np.testing.assert_array_equal(
                 want[:, k], np.array(jax_w)[:, 1 + dy, (1 + dx) * C:(2 + dx) * C].transpose(0, 2, 1))
-    else:
+    else:  # int8_patch and int8_flat: one (9C, C) layout
         jax_w = jqt.w_int8.reshape(L, C, 9, C).transpose(0, 2, 1, 3).reshape(L, 9 * C, C)
-        want = jax_w
-        if variant == "int8_patch":
-            want = patch_kmajor(torch.from_numpy(np.array(jax_w))).numpy()
-            assert np.array_equal(patch_kmajor_weights(w_int8).numpy(), want)
-            for k in range(9):  # tap k: rows [k*C, (k+1)*C)
-                np.testing.assert_array_equal(
-                    want[:, k], np.array(jax_w)[:, k * C:(k + 1) * C].transpose(0, 2, 1))
+        want = patch_kmajor(torch.from_numpy(np.array(jax_w))).numpy()
+        assert np.array_equal(patch_kmajor_weights(w_int8).numpy(), want)
+        for k in range(9):  # tap k: rows [k*C, (k+1)*C)
+            np.testing.assert_array_equal(
+                want[:, k], np.array(jax_w)[:, k * C:(k + 1) * C].transpose(0, 2, 1))
     fused = FusedInference(port_model(variables), variant=variant)
     assert fused.trunk_w.dtype == torch.int8 and fused.trunk_w.is_contiguous()
     np.testing.assert_array_equal(fused.trunk_w.numpy(), np.array(want))
     assert INT8_KERNELS[variant][0] is INT8_VARIANTS[variant][1]
+
+
+# the int8 conv body's variants (csrc/int8_conv_sm90.cuh, int32 sums): each
+# plain version
+CONV_BODY_PLAIN = {"int8_dx3": trunk_int8_dx3_plain, "int8": trunk_int8_plain,
+                   "int8_patch": trunk_int8_patch_plain, "int8_m9": trunk_int8_m9_plain,
+                   "int8_flat": trunk_int8_flat_plain}
+
+
+@pytest.mark.parametrize("batch", [64, 24])
+def test_conv_body_variants_agree_bit_for_bit(batch):
+    """The five variants that run the int8 conv body compute one function:
+    their plain versions on the same quantized weights, each relaid out by
+    its variant's own function (``INT8_KERNELS``), at one block size (8
+    games), give the same output bit for bit. A relayout in the wrong
+    orientation would move the output."""
+    variables = init_numpy_variables(NUM_BLOCKS, CHANNELS, seed=11)
+    jqt = jq.quantize_trunk(variables, NUM_BLOCKS)
+    w_int8 = torch.from_numpy(np.array(jqt.w_int8))
+    scale = torch.from_numpy(np.array(jqt.w_scale))
+    bias = torch.from_numpy(np.array(jqt.bias))
+    x = to_torch_bf16(trunk_input(batch, seed=5))
+    outs = {v: plain(x, INT8_KERNELS[v][1](w_int8), scale, bias, 8)
+            for v, plain in CONV_BODY_PLAIN.items()}
+    ref = outs["int8_dx3"]
+    assert ref.shape == x.shape and bool(torch.isfinite(ref.float()).all())
+    for v, out in outs.items():
+        assert torch.equal(out, ref), v
 
 
 @pytest.mark.parametrize("variant,probs,value", [
