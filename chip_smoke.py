@@ -120,6 +120,29 @@ each as they finish:
                  games, the decision logged and written as its two scalars,
                  best equal to the candidate if adopted and unchanged if
                  not, the checkpoint holding best and reloading it exactly;
+   cli           the port's user entry points in process, writing only
+                 under the git-ignored ``_build/``: ``configs/run_flagship_r5.yaml``
+                 read with the port's ``load_config`` (no pyyaml), cut in
+                 the same YAML subset (10x128, ``int8_dx3``, its lr and
+                 c_puct; 256 games of 16 simulations, 4 SGD steps at batch
+                 1024, 2 iterations with a checkpoint each, no
+                 self-healing); ``cli train --config``: ``trunk_int8_dx3``
+                 launched 20 x network forwards (> 0), no other trunk, no
+                 self-heal line, the checkpoints written; the file raised to
+                 3 iterations and ``train --resume latest``: starts at
+                 iteration 3, ends with ``final_model`` at 3; ``eval
+                 --games 8 --simulations 8 --minimax-depth 2
+                 --save-results``: Random, Greedy and the alpha-beta engine
+                 each with a result and no error; ``play`` with scripted
+                 input (the first legal move) to game over; ``export`` as
+                 ``reference-pt``, ``torchscript`` and ``stablehlo`` (the
+                 ``torch.export`` program) at batch 256, each reloaded on
+                 the card and run on 256 real positions against the
+                 checkpoint's network in eval mode at f32: ``reference-pt``
+                 bit for bit, the other two within 1e-5; the port's
+                 ``benchmark.py``, both sections (2,000 native playouts
+                 against the 5,000 games/s bar, 4,096 games on the card);
+                 the seconds of each step;
 9. bench         the port's ``bench.py --mode all --repeats 1`` in process,
                  its JSON line printed (random self-play through
                  ``random_step``, one launch a ply; self-play through
@@ -154,7 +177,10 @@ the script exits non-zero; without CUDA it exits non-zero before any phase.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -165,7 +191,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from othello_reinforcement_learning_test_tpu_torch import bench, benchmark_model
+from othello_reinforcement_learning_test_tpu_torch import bench, benchmark, benchmark_model, cli
 from othello_reinforcement_learning_test_tpu_torch.kernels import build
 from othello_reinforcement_learning_test_tpu_torch.kernels import random_step as rs
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8 import (
@@ -220,13 +246,16 @@ from othello_reinforcement_learning_test_tpu_torch.models.convert import (
     init_numpy_variables,
     init_train_variables,
 )
+from othello_reinforcement_learning_test_tpu_torch.models.export import load_exported
 from othello_reinforcement_learning_test_tpu_torch.models.fused_resnet import FusedInference
 from othello_reinforcement_learning_test_tpu_torch.models.resnet import OthelloResNet
+from othello_reinforcement_learning_test_tpu_torch.models.torch_bridge import infer_architecture
 from othello_reinforcement_learning_test_tpu_torch.ops import fused_step
 from othello_reinforcement_learning_test_tpu_torch.ops.bitboard import get_engine
 from othello_reinforcement_learning_test_tpu_torch.search import mcts
 from othello_reinforcement_learning_test_tpu_torch.train import trainer as trainer_lib
 from othello_reinforcement_learning_test_tpu_torch.train.self_play import play_games
+from othello_reinforcement_learning_test_tpu_torch.utils.config import load_config, to_yaml
 
 NUM_BLOCKS, NUM_FILTERS = 10, 128
 GAMES, SIMS = 1024, 25
@@ -247,8 +276,8 @@ RANDOM_STEP_OPS = 3 * 8 * 7 * 4
 RANDOM_STEP_BYTES = 2 * 8 + 2 * 8 + 2 * 4 + 4
 RANDOM_GAMES = 4194304  # bench.py's random-mode batch with the kernel
 # the int8_dx3 and trunk_int8 checks' batches: 1040 gives bg 16 with more
-# games than two a CTA, 267 an odd count
-INT8_BATCHES = (GAMES, 1040, 267, 24, 3, 1)
+# games than two a CTA, 267 an odd count, 256 the cli phase's self-play
+INT8_BATCHES = (GAMES, 1040, 267, 256, 24, 3, 1)
 # the profiler names of the int8 conv body's launches and the pre-pass,
 # and of the one-launch trunk (int8_dxcat)
 INT8_DEVICE_NAMES = ("int8_conv_kernel", "prepass_kernel")
@@ -285,44 +314,51 @@ INT8_REPLACES = "othello_reinforcement_learning_test_tpu/models/pallas_resnet.py
 STEP_SOURCE = "othello_reinforcement_learning_test_tpu_torch/csrc/random_step.cu"
 STEP_REPLACES = "othello_reinforcement_learning_test_tpu/ops/pallas_step.py:162"
 SEARCH_GAMES, SEARCH_SIMS = 128, 8
+REPO = Path(__file__).resolve().parent
+
+
+def config_with(name: str, overrides: dict) -> dict:
+    """``configs/<name>`` read by the port's ``load_config``, with
+    ``overrides`` ({section: {key: value}}, nested blocks merged) on top."""
+    cfg = load_config(str(REPO / "configs" / name))
+    for section, values in overrides.items():
+        for key, value in values.items():
+            if isinstance(value, dict):
+                cfg[section][key].update(value)
+            else:
+                cfg[section][key] = value
+    return cfg
+
+
 # configs/run_flagship_r5.yaml, with self-play through matmul9 and a
 # checkpoint after the one iteration this script runs
-FLAGSHIP = {
-    "game": {"size": 8, "rules": "reference"},
-    "model": {"num_blocks": 10, "num_filters": 128, "board_size": 8},
-    "training": {"batch_size": 1024, "lr": 0.006, "lr_schedule": "step", "lr_step_size": 350,
-                 "lr_gamma": 0.2, "weight_decay": 0.0001, "momentum": 0.9,
-                 "num_iterations": 1000, "self_play_episodes_per_iter": 1024,
-                 "train_epochs_per_iter": 24, "checkpoint_interval": 1,
-                 "replay_buffer_size": 800000, "augment_symmetries": False,
-                 "prioritized_replay": False},
-    "mcts": {"num_simulations": 64, "num_simulations_eval": 100, "c_puct": 1.25,
-             "dirichlet_alpha": 0.3, "dirichlet_epsilon": 0.25},
-    "self_play": {"temperature_threshold": 14},
-    "system": {"device": "auto", "seed": 5, "use_mixed_precision": True,
-               "self_play_net_variant": "matmul9"},
-}
+FLAGSHIP = config_with("run_flagship_r5.yaml", {
+    "training": {"checkpoint_interval": 1},
+    "system": {"self_play_net_variant": "matmul9"}})
 SCRATCH = build.BUILD_DIR / "chip_smoke_train"  # git-ignored
 ARENA_GAMES = 64
 # configs/strong_8x8.yaml, with self-play and gating through int8_dxcat, cut
 # so that one iteration gates and checkpoints in about a minute: 64 games in
 # one batch (200 in batches of 16), 25 simulations (100), 4 SGD steps (15),
 # gating and a checkpoint every iteration (every 25)
-STRONG = {
-    "game": {"size": 8, "rules": "reference"},
-    "model": {"num_blocks": 10, "num_filters": 128, "board_size": 8},
-    "training": {"batch_size": 256, "lr": 0.001, "lr_step_size": 200, "lr_gamma": 0.5,
-                 "weight_decay": 0.0001, "momentum": 0.9, "num_iterations": 500,
-                 "self_play_episodes_per_iter": 64, "train_epochs_per_iter": 4,
-                 "checkpoint_interval": 1, "replay_buffer_size": 200000,
-                 "gating": {"enabled": True, "games": 40, "win_threshold": 0.55, "interval": 1,
-                            "opening_random_plies": 4}},
-    "mcts": {"num_simulations": 25, "num_simulations_eval": 200, "c_puct": 1.5,
-             "dirichlet_alpha": 0.3, "dirichlet_epsilon": 0.25},
-    "self_play": {"temperature_threshold": 20, "num_parallel_games": 64},
-    "system": {"device": "auto", "seed": 42, "use_mixed_precision": True,
-               "self_play_net_variant": "int8_dxcat"},
-}
+STRONG = config_with("strong_8x8.yaml", {
+    "training": {"self_play_episodes_per_iter": 64, "train_epochs_per_iter": 4,
+                 "checkpoint_interval": 1, "gating": {"interval": 1}},
+    "mcts": {"num_simulations": 25},
+    "self_play": {"num_parallel_games": 64},
+    "system": {"self_play_net_variant": "int8_dxcat"}})
+# the cli phase: configs/run_flagship_r5.yaml (10x128, int8_dx3, its lr and
+# c_puct) cut to 256 games of 16 simulations, 4 SGD steps at batch 1024, 2
+# iterations with a checkpoint each, then resumed to 3; no self-healing, so
+# that a kernel fault fails the phase
+CLI_SCRATCH = build.BUILD_DIR / "chip_smoke_cli"  # git-ignored
+CLI_CUT = {"training": {"self_play_episodes_per_iter": 256, "train_epochs_per_iter": 4,
+                        "batch_size": 1024, "num_iterations": 2, "checkpoint_interval": 1},
+           "mcts": {"num_simulations": 16},
+           "paths": {"checkpoint_dir": str(CLI_SCRATCH / "models"),
+                     "log_dir": str(CLI_SCRATCH / "logs"), "data_dir": str(CLI_SCRATCH)},
+           "system": {"max_recovery_retries": 0}}
+CLI_EXPORT_BATCH = 256
 
 
 def launches_per_forward(kernel) -> int:
@@ -1055,6 +1091,166 @@ def gating_phase() -> int:
     return launches
 
 
+def captured(fn, argv: list):
+    """``fn(argv)`` with what it prints captured: ``(result, text)``. On an
+    exception the text's tail is printed first."""
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            result = fn(argv)
+    except BaseException:
+        print(out.getvalue()[-4000:], flush=True)
+        raise
+    return result, out.getvalue()
+
+
+def cli_phase(engine, dev) -> None:
+    """The port's CLI and scripts as a user runs them (see the module
+    docstring): train from a YAML file through int8_dx3, resume, eval,
+    play, export and reload, the engine benchmark."""
+    shutil.rmtree(CLI_SCRATCH, ignore_errors=True)
+    CLI_SCRATCH.mkdir(parents=True)
+    seconds, counts = {}, {"forwards": 0}
+    t0 = time.perf_counter()
+    cut = config_with("run_flagship_r5.yaml", CLI_CUT)
+    check((cut["model"]["num_blocks"], cut["model"]["num_filters"]) == (10, 128)
+          and cut["system"]["self_play_net_variant"] == "int8_dx3",
+          "configs/run_flagship_r5.yaml read: 10x128, int8_dx3")
+    path = CLI_SCRATCH / "flagship_cut.yaml"
+    path.write_text(to_yaml(cut))
+    check(load_config(str(path)) == cut, "the cut copy reads back equal")
+    seconds["config"] = time.perf_counter() - t0
+
+    make_net = trainer_lib.AlphaZeroTrainer._net
+
+    def counted_net(self, model):
+        net = make_net(self, model)
+
+        def f(x):
+            counts["forwards"] += 1
+            return net(x)
+        return f
+
+    def train(argv, what):
+        for kernel in set(VARIANT_KERNEL.values()):
+            kernel.launches = 0
+        counts["forwards"] = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer_lib.AlphaZeroTrainer._net = counted_net
+        try:
+            _, log = captured(cli.main, argv)
+        finally:
+            trainer_lib.AlphaZeroTrainer._net = make_net
+        torch.cuda.synchronize()
+        seconds[what] = time.perf_counter() - t
+        launches, fwd = trunk_int8_dx3.launches, counts["forwards"]
+        others = {k.__name__: k.launches for k in VARIANT_KERNEL.values()
+                  if k is not trunk_int8_dx3}
+        check(launches > 0 and launches == 2 * NUM_BLOCKS * fwd,
+              f"cli {what}: int8_dx3 launches {launches} == 20 x forwards {fwd}")
+        check(not any(others.values()), f"cli {what}: no other trunk kernel ({others})")
+        check("self-heal" not in log, f"cli {what}: no self-heal line")
+        return log, launches, fwd
+
+    models = CLI_SCRATCH / "models"
+    log, launches, fwd = train(["train", "--config", str(path)], "train")
+    check(all((models / f"{n}.pt").is_file()
+              for n in ("checkpoint_iter_000001", "checkpoint_iter_000002", "final_model")),
+          "checkpoints of iterations 1 and 2 and final_model written")
+    check("iter 2/2" in log, "two iterations logged")
+    cut["training"]["num_iterations"] = 3
+    path.write_text(to_yaml(cut))
+    log, launches_r, fwd_r = train(["train", "--config", str(path), "--resume", "latest"],
+                                   "resume")
+    final = models / "final_model.pt"
+    state = torch.load(final, map_location="cpu", weights_only=True)["train_state"]
+    check("at iteration 2" in log and "iter 3/3" in log and "iter 1/" not in log
+          and "iter 2/" not in log and state["iteration"] == 3
+          and (models / "checkpoint_iter_000003.pt").is_file(),
+          "resume starts at iteration 3 and ends with final_model at 3")
+
+    cwd = Path.cwd()
+    t = time.perf_counter()
+    try:
+        os.chdir(CLI_SCRATCH)  # eval --save-results writes data/eval/ under the cwd
+        captured(cli.main, ["eval", "--checkpoint", str(final), "--games", "8",
+                            "--simulations", "8", "--minimax-depth", "2", "--save-results"])
+    finally:
+        os.chdir(cwd)
+    seconds["eval"] = time.perf_counter() - t
+    saved = sorted((CLI_SCRATCH / "data" / "eval").glob("eval_*.json"))
+    check(len(saved) == 1, "eval --save-results wrote one file")
+    results = json.loads(saved[0].read_text())["results"]
+    check(set(results) == {"Random", "Greedy", "Minimax(d2/e12)"}
+          and not any("error" in r for r in results.values())
+          and all(r["wins"] + r["losses"] + r["draws"] == 8 for r in results.values()),
+          f"eval: every opponent has a result, none an error ({results})")
+
+    def first_legal(prompt: str) -> str:
+        return prompt[prompt.index("[") + 1:].split("]")[0].split(",")[0]
+
+    t = time.perf_counter()
+    cli.input = first_legal
+    try:
+        _, played = captured(cli.main, ["play", "--checkpoint", str(final), "--simulations", "4"])
+    finally:
+        del cli.input
+    seconds["play"] = time.perf_counter() - t
+    check("game over:" in played, "play reaches game over")
+
+    t = time.perf_counter()
+    exports = {}
+    for fmt, suffix in (("reference-pt", ".pt"), ("torchscript", ".ts.pt"),
+                        ("stablehlo", ".pt2")):
+        exports[fmt] = CLI_SCRATCH / f"export_{fmt}{suffix}"
+        captured(cli.main, ["export", "--checkpoint", str(final), "--out", str(exports[fmt]),
+                 "--format", fmt, "--batch-size", str(CLI_EXPORT_BATCH)])
+    seconds["export"] = time.perf_counter() - t
+    t = time.perf_counter()
+    net = MCTSPlayer.from_checkpoint(str(final), device=dev).model
+    x = engine.features(random_positions(engine, CLI_EXPORT_BATCH, 30,
+                                         np.random.default_rng(SEED), dev))
+    with torch.no_grad():
+        want = net(x, train=False, compute_dtype=torch.float32)
+        sd = torch.load(exports["reference-pt"], map_location=dev,
+                        weights_only=True)["model_state_dict"]
+        ref = OthelloResNet(*infer_architecture(sd)).to(dev)
+        ref.load_state_dict(sd)
+        got = {"reference-pt": ref(x, train=False, compute_dtype=torch.float32),
+               "torchscript": torch.jit.load(str(exports["torchscript"]), map_location=dev)(
+                   x.permute(0, 3, 1, 2)),
+               "stablehlo": load_exported(str(exports["stablehlo"]), dev)(x)}
+    export_err = {}
+    for fmt, (lp, v) in got.items():
+        check(lp.device.type == "cuda" and lp.shape == want[0].shape and v.shape == want[1].shape,
+              f"export {fmt}: outputs on the card, shapes {tuple(lp.shape)}, {tuple(v.shape)}")
+        export_err[fmt] = max(float((lp - want[0]).abs().max()), float((v - want[1]).abs().max()))
+    check(torch.equal(got["reference-pt"][0], want[0]) and torch.equal(got["reference-pt"][1],
+                                                                       want[1]),
+          "reference-pt reloads bit for bit")
+    check(export_err["torchscript"] <= 1e-5 and export_err["stablehlo"] <= 1e-5,
+          f"torchscript and torch.export within 1e-5 ({export_err})")
+    seconds["export_check"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    out, _ = captured(benchmark.main, ["--games", "2000", "--batch", "4096", "--repeats", "1"])
+    seconds["benchmark"] = time.perf_counter() - t
+    check(out["native"] is not None and out["native"]["passed"], "native playouts pass 5,000 games/s")
+    check(out["batched"]["value"] > 0 and out["batched"]["batch"] == 4096, "batched engine section")
+    phase("cli", config="configs/run_flagship_r5.yaml",
+          games=cut["training"]["self_play_episodes_per_iter"],
+          simulations=cut["mcts"]["num_simulations"],
+          sgd_steps=cut["training"]["train_epochs_per_iter"], forwards=fwd, trunk_launches=launches, resume_forwards=fwd_r,
+          resume_trunk_launches=launches_r, eval_results=results,
+          export_max_abs_diff=export_err, export_batch=CLI_EXPORT_BATCH,
+          native_games_per_s=round(out["native"]["games_per_sec"], 1),
+          batched_games_per_s=out["batched"]["value"],
+          seconds={k: round(v, 3) for k, v in seconds.items()},
+          total_s=round(time.perf_counter() - t0, 3))
+    shutil.rmtree(CLI_SCRATCH, ignore_errors=True)
+
+
 def bench_phase() -> tuple:
     """The port's bench in process: ``--mode all --repeats 1`` (random_step
     launched once a ply), then ``--mode mcts --net-variant int8``
@@ -1304,6 +1500,7 @@ def main() -> int:
     train_step_check(engine, feats.cpu(), rng)
     m9_launches = train_iteration(dev)
     dxcat_launches = gating_phase()
+    cli_phase(engine, dev)
     step_launches, int8_launches = bench_phase()
     variant_launches = benchmark_model_phase()
 

@@ -20,6 +20,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..models.torch_bridge import infer_architecture
 from ..ops import bits
 from ..ops.bitboard import Board, OthelloEngine, get_engine
 from ..search import mcts
@@ -153,17 +154,6 @@ class MCTSPlayer(Player):
         if train_state is not None:
             player.train_state = train_state
         return player
-
-
-def infer_architecture(state_dict) -> tuple:
-    """``(num_blocks, num_filters, board_size, value_hidden)`` from a
-    reference-format state dict's key names and shapes."""
-    num_filters = int(state_dict["conv_block.conv.weight"].shape[0])
-    num_blocks = 1 + max((int(k.split(".")[1]) for k in state_dict
-                          if k.startswith("res_blocks.")), default=-1)
-    n_actions = int(state_dict["policy_head.fc.weight"].shape[0])
-    board_size = int(round((n_actions - 1) ** 0.5))
-    return num_blocks, num_filters, board_size, int(state_dict["value_head.fc1.weight"].shape[0])
 
 
 class _HostPlayer(Player):

@@ -28,11 +28,13 @@ and the heads through ``models/fused_resnet.FusedInference`` instead.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .convert import from_jax_variables, init_train_variables
 
 BN_MOMENTUM = 0.99  # flax nn.BatchNorm default: ra = m * ra + (1 - m) * batch
 
@@ -154,5 +156,47 @@ class OthelloResNet(nn.Module):
         return self.policy_head(h, train), self.value_head(h, train)
 
 
+def create_model(config: Optional[Dict] = None) -> OthelloResNet:
+    """Build from a config dict's ``model`` section (or a dict of its keys
+    num_blocks / num_filters / board_size), as the JAX ``create_model``."""
+    cfg = (config or {}).get("model", config or {})
+    return OthelloResNet(
+        num_blocks=int(cfg.get("num_blocks", 10)),
+        num_filters=int(cfg.get("num_filters", 128)),
+        board_size=int(cfg.get("board_size", 8)),
+    )
+
+
+def init_variables(model: OthelloResNet,
+                   rng: Union[int, torch.Generator]) -> Dict[str, torch.Tensor]:
+    """The trainer's initial weights for ``model`` as a state dict:
+    ``models/convert.py::init_train_variables`` (flax's initialisers, drawn
+    from a numpy seed). ``rng`` is that seed, or a generator the seed is
+    drawn from."""
+    if isinstance(rng, torch.Generator):
+        rng = int(torch.randint(0, 2 ** 62, (1,), generator=rng))
+    return from_jax_variables(init_train_variables(
+        model.num_blocks, model.num_filters, int(rng), model.board_size, model.value_hidden))
+
+
 def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+@torch.no_grad()
+def predict(model: OthelloResNet, variables: Dict[str, torch.Tensor], x: torch.Tensor,
+            compute_dtype: torch.dtype = torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inference: ``(probs, value)`` with probs = exp(log_probs), from NHWC
+    input, batched ``(B, S, S, 3)`` or a single ``(S, S, 3)`` sample (then
+    the outputs have no batch axis), as the JAX ``predict``. ``variables``
+    is the state dict the network runs with (``model.state_dict()`` for
+    its own); ``compute_dtype`` defaults to bfloat16, the JAX network's."""
+    single = x.dim() == 3
+    if single:
+        x = x[None]
+    log_probs, value = torch.func.functional_call(
+        model, variables, (x,), {"train": False, "compute_dtype": compute_dtype})
+    probs = torch.exp(log_probs)
+    if single:
+        probs, value = probs[0], value[0]
+    return probs, value

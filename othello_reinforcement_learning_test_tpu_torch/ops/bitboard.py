@@ -296,6 +296,24 @@ class OthelloEngine:
         return (torch.stack(feats, dim=features.dim() - 3),
                 torch.stack(pis, dim=pi.dim() - 1))
 
+    # -- host-side pretty printing ---------------------------------------------
+    def to_string(self, state: Board) -> str:
+        """ASCII board for a single (unbatched) state; ● = side to move.
+        Square (r, c) is bit ``r * 8 + c`` at every size, as in the JAX
+        engine."""
+        if state.me.dim() != 0:
+            raise ValueError("to_string takes a single unbatched board")
+        me = bits.to_planes(state.me.cpu(), torch.int32).tolist()
+        opp = bits.to_planes(state.opp.cpu(), torch.int32).tolist()
+        lines = ["  " + " ".join("ABCDEFGH"[: self.size])]
+        for r in range(self.size):
+            row = [f"{r + 1} "]
+            for c in range(self.size):
+                i = r * 8 + c
+                row.append("● " if me[i] else ("○ " if opp[i] else ". "))
+            lines.append("".join(row).rstrip())
+        return "\n".join(lines)
+
 
 @functools.lru_cache(maxsize=None)
 def get_engine(size: int = 8, rules: str = "reference") -> OthelloEngine:

@@ -13,8 +13,9 @@ import torch
 
 
 def resolve_device(name: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """``None`` -> ``cuda``; ``"cpu"`` -> CPU; any CUDA name requires CUDA."""
-    device = torch.device("cuda" if name is None else name)
+    """``None`` or ``"auto"`` -> ``cuda``; ``"cpu"`` -> CPU; any CUDA name
+    requires CUDA."""
+    device = torch.device("cuda" if name is None or name == "auto" else name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(device)!r} requested but CUDA is not available; "
