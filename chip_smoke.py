@@ -143,6 +143,29 @@ each as they finish:
                  ``benchmark.py``, both sections (2,000 native playouts
                  against the 5,000 games/s bar, 4,096 games on the card);
                  the seconds of each step;
+   distributed   data parallelism (``parallel/mesh.py``): an NCCL process
+                 group of world size 1 on the card (backend ``nccl``;
+                 ``all_gather_leading`` of a trajectory, the gradient
+                 all-reduce, the BatchNorm moment all-reduce and its
+                 gradient, ``broadcast``, each equal to its input); then two
+                 ranks on the one card over gloo (NCCL refuses two ranks on
+                 one card), two processes of this script
+                 (``--distributed-rank``), each running ``cli train
+                 --coordinator`` on ``configs/run_flagship_r5.yaml`` cut to
+                 128 games a rank of 8 simulations, 4 SGD steps at batch 1024
+                 (512 a rank), 2 iterations with a checkpoint (rank 0 writes),
+                 through ``int8_dx3``; then in the same group one gated
+                 ``STRONG`` iteration through ``int8_dxcat`` (32 games a rank,
+                 a 40-game gate match, 20 a rank); then one f32 SGD step at
+                 10x128 on its half of 1024 positions. Checks: each rank's
+                 trunk launches = 20 x its forwards (``int8_dxcat``: 1 x), no
+                 other trunk, no self-heal line; both ranks end with equal
+                 parameter and buffer digests and the same gate decision and
+                 record; the 2-rank step equal to the single-process
+                 full-batch step here (loss rtol 1e-4; parameters and
+                 statistics rtol 1e-4, atol 1e-6, as ``train_step_check``);
+                 each rank's seconds of self-play, SGD, gate match and
+                 checkpoint;
 9. bench         the port's ``bench.py --mode all --repeats 1`` in process,
                  its JSON line printed (random self-play through
                  ``random_step``, one launch a ply; self-play through
@@ -359,6 +382,23 @@ CLI_CUT = {"training": {"self_play_episodes_per_iter": 256, "train_epochs_per_it
                      "log_dir": str(CLI_SCRATCH / "logs"), "data_dir": str(CLI_SCRATCH)},
            "system": {"max_recovery_retries": 0}}
 CLI_EXPORT_BATCH = 256
+# the distributed phase: two ranks on the one card over gloo, each a process
+# running cli train on configs/run_flagship_r5.yaml (10x128, int8_dx3) cut
+# to 128 games a rank of 8 simulations, 4 SGD steps at batch 1024 (512 a
+# rank), 2 iterations with a checkpoint; then a gated strong_8x8 iteration
+# (STRONG: 32 games a rank, a 40-game gate match, 20 a rank) through
+# int8_dxcat; then one 2-rank f32 SGD step at 10x128 on 1024 positions
+DIST_SCRATCH = build.BUILD_DIR / "chip_smoke_distributed"  # git-ignored
+DIST_RANKS = 2
+DIST_CUT = {"training": {"self_play_episodes_per_iter": 128 * DIST_RANKS,
+                         "train_epochs_per_iter": 4, "batch_size": 1024, "num_iterations": 2,
+                         "checkpoint_interval": 2},
+            "mcts": {"num_simulations": 8},
+            "paths": {"checkpoint_dir": str(DIST_SCRATCH / "models"),
+                      "log_dir": str(DIST_SCRATCH / "logs"), "data_dir": str(DIST_SCRATCH)},
+            "system": {"max_recovery_retries": 0, "mesh_devices": DIST_RANKS}}
+DIST_STEP_BATCH = 1024
+DIST_TIMEOUT_S = 600
 
 
 def launches_per_forward(kernel) -> int:
@@ -1251,6 +1291,279 @@ def cli_phase(engine, dev) -> None:
     shutil.rmtree(CLI_SCRATCH, ignore_errors=True)
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def step_inputs(engine, dev):
+    """The distributed SGD check's global batch: 1024 positions after 30
+    random plies, pi and values, from a numpy seed (the same on every rank)."""
+    rng = np.random.default_rng(SEED + 2)
+    feats = engine.features(random_positions(engine, DIST_STEP_BATCH, 30, rng, dev))
+    pi = rng.random((DIST_STEP_BATCH, engine.num_actions)).astype(np.float32)
+    pi /= pi.sum(-1, keepdims=True)
+    tv = rng.choice(np.array([-1.0, 0.0, 1.0], np.float32), (DIST_STEP_BATCH, 1))
+    return feats, torch.from_numpy(pi).to(dev), torch.from_numpy(tv).to(dev)
+
+
+def sgd_step(feats, pi, tv, dev):
+    """One f32 SGD step at 10x128 from the trainer's initial weights (the
+    configuration of ``train_step_check``): the new state dict on the CPU
+    and the loss. Under a process group, the rank's share of a global
+    batch."""
+    cfg = {"training": {"lr": 0.006, "momentum": 0.9, "weight_decay": 1e-4}}
+    m = OthelloResNet(NUM_BLOCKS, NUM_FILTERS)
+    m.load_state_dict(from_jax_variables(init_train_variables(NUM_BLOCKS, NUM_FILTERS, SEED + 1)))
+    m.to(dev)
+    state = trainer_lib.TrainState(m, trainer_lib.make_optimizer(m, cfg))
+    metrics = trainer_lib.train_on_batch(state, feats, pi, tv, trainer_lib.make_lr_schedule(cfg),
+                                         torch.float32)
+    return {k: t.cpu() for k, t in m.state_dict().items()}, float(metrics["loss"])
+
+
+def distributed_worker(rank: int, port: int, outdir: str) -> int:
+    """One rank of phase ``distributed`` (see the module docstring): joins
+    the gloo group through ``cli train --coordinator``, then runs the gated
+    iteration and the SGD step in it; writes ``result_{rank}.json``."""
+    import functools
+
+    from othello_reinforcement_learning_test_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # two ranks share the one card, which NCCL refuses: gloo, by the Python
+    # argument the CLI leaves at its default
+    mesh.initialize_distributed = functools.partial(mesh.initialize_distributed,
+                                                    backend="gloo")
+    out = DIST_SCRATCH / outdir
+    seconds, forwards, kept = {}, [0], []
+    cls = trainer_lib.AlphaZeroTrainer
+    originals = {name: getattr(cls, name) for name in
+                 ("_net", "run_self_play", "_gate_match", "save_checkpoint", "train")}
+    steps = trainer_lib.train_steps
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+        return run
+
+    def counted_net(self, model):
+        net = originals["_net"](self, model)
+
+        def f(x):
+            forwards[0] += 1
+            return net(x)
+        return f
+
+    def keep(self, *a, **kw):
+        kept.append(self)
+        return originals["train"](self, *a, **kw)
+
+    cls._net, cls.train = counted_net, keep
+    cls.run_self_play = timed("self_play", originals["run_self_play"])
+    cls._gate_match = timed("gate_match", originals["_gate_match"])
+    cls.save_checkpoint = timed("checkpoint", originals["save_checkpoint"])
+    trainer_lib.train_steps = timed("sgd", steps)
+    result = {"rank": rank}
+
+    def reset():
+        seconds.clear()
+        forwards[0] = 0
+        for kernel in set(VARIANT_KERNEL.values()):
+            kernel.launches = 0
+
+    # 1. cli train, 2 iterations through int8_dx3
+    reset()
+    t = time.perf_counter()
+    _, log = captured(cli.main, ["train", "--config", str(DIST_SCRATCH / "flagship_cut.yaml"),
+                                 "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                                 str(DIST_RANKS), "--process-id", str(rank)])
+    tr = kept[-1]
+    result["train"] = {
+        "seconds": {k: round(v, 3) for k, v in seconds.items()},
+        "total_s": round(time.perf_counter() - t, 3), "forwards": forwards[0],
+        "launches": {k.__name__: k.launches for k in set(VARIANT_KERNEL.values())},
+        "params": digest(tr.model.state_dict().values()),
+        "buffer_filled": tr.buffer.filled, "iteration": tr.state.iteration,
+        "self_heal": "self-heal" in log,
+        "up": f"distributed: process {rank}/{DIST_RANKS} up" in log,
+        "device": str(tr.device), "backend": torch.distributed.get_backend()}
+
+    # 2. one gated strong_8x8 iteration through int8_dxcat in the same group
+    cfg = json.loads(json.dumps(STRONG))
+    cfg["paths"] = {"checkpoint_dir": str(DIST_SCRATCH / "strong" / "models"),
+                    "log_dir": str(DIST_SCRATCH / "strong" / "logs")}
+    cfg["system"]["mesh_devices"] = DIST_RANKS
+    logs = []
+    tr = trainer_lib.AlphaZeroTrainer(cfg, log_cb=logs.append)
+    gates = []
+    gate_match = tr._gate_match
+    tr._gate_match = lambda seed: gates.append(gate_match(seed)) or gates[-1]
+    reset()
+    t = time.perf_counter()
+    tr._train_iteration(0, tr.episodes_per_iter, tr.num_iterations, [], [])
+    win_rate, summary = gates[-1]
+    result["gated"] = {
+        "seconds": {k: round(v, 3) for k, v in seconds.items()},
+        "total_s": round(time.perf_counter() - t, 3), "forwards": forwards[0],
+        "launches": {k.__name__: k.launches for k in set(VARIANT_KERNEL.values())},
+        "params": digest(tr.model.state_dict().values()),
+        "best": digest(tr.best[k] for k in sorted(tr.best)),
+        "win_rate": win_rate, "wld": [summary.wins, summary.losses, summary.draws],
+        "gate_games": len(summary.results),
+        "adopted": win_rate >= tr.gating_threshold,
+        "self_heal": any("self-heal" in m for m in logs)}
+    tr.close()
+
+    # 3. the 2-rank SGD step on the rank's half of the global batch
+    feats, pi, tv = step_inputs(tr.engine, tr.device)
+    rows = mesh.local_slice(DIST_STEP_BATCH)
+    sd, loss = sgd_step(feats[rows], pi[rows], tv[rows], tr.device)
+    torch.save(sd, out / f"sgd_{rank}.pt")
+    result["sgd"] = {"loss": loss, "params": digest(sd.values())}
+    (out / f"result_{rank}.json").write_text(json.dumps(result))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def distributed_phase(engine, dev) -> None:
+    """NCCL at world size 1 on the card, then two gloo ranks on the card
+    through the CLI (see the module docstring)."""
+    from othello_reinforcement_learning_test_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    # 1. NCCL, world size 1: each collective of the port on CUDA tensors
+    mesh.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    check(torch.distributed.get_backend() == "nccl", "the CUDA process group is NCCL")
+    traj = play_games(engine, stub_net(stub_weights(8), dev), 16, 2, add_noise=True, seed=SEED,
+                      device=dev)
+    gathered = mesh.all_gather_leading(traj)
+    check(all(torch.equal(a, b) for a, b in zip(gathered, traj)),
+          "all_gather_leading of a trajectory at world size 1 is the trajectory")
+    m = OthelloResNet(1, 16).to(dev)
+    x = engine.features(random_positions(engine, 8, 10, np.random.default_rng(SEED), dev))
+    log_p, value = m(x, train=True, compute_dtype=torch.float32)
+    (log_p.sum() + value.sum()).backward()
+    grads = [p.grad.clone() for p in m.parameters()]
+    mesh.all_reduce_mean_grads(m)
+    check(all(torch.equal(g, p.grad) for g, p in zip(grads, m.parameters())),
+          "the gradient all-reduce at world size 1 keeps every gradient")
+    moments = torch.randn(2, 128, device=dev, dtype=torch.float32, requires_grad=True)
+    mean = mesh.global_mean(moments)
+    mean.backward(torch.ones_like(mean))
+    check(torch.equal(mean, moments) and torch.equal(moments.grad, torch.ones_like(moments)),
+          "the BatchNorm moment all-reduce at world size 1: the moments and their gradient")
+    b = torch.arange(10, device=dev)
+    check(torch.equal(mesh.broadcast(b.clone()), b), "broadcast at world size 1")
+    torch.distributed.destroy_process_group()
+    nccl_s = time.perf_counter() - t0
+
+    # 2. two ranks over gloo on the one card, each running the CLI
+    shutil.rmtree(DIST_SCRATCH, ignore_errors=True)
+    DIST_SCRATCH.mkdir(parents=True)
+    cut = config_with("run_flagship_r5.yaml", DIST_CUT)
+    check((cut["model"]["num_blocks"], cut["model"]["num_filters"]) == (10, 128)
+          and cut["system"]["self_play_net_variant"] == "int8_dx3",
+          "configs/run_flagship_r5.yaml read: 10x128, int8_dx3")
+    (DIST_SCRATCH / "flagship_cut.yaml").write_text(to_yaml(cut))
+    (DIST_SCRATCH / "out").mkdir()
+    port = free_port()
+    t1 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--distributed-rank",
+                               str(rank), str(port), "out"], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in range(DIST_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            left = DIST_TIMEOUT_S - (time.perf_counter() - t1)
+            outs.append(p.communicate(timeout=max(left, 1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.perf_counter() - t1
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(text[-6000:], flush=True)
+        check(p.returncode == 0, f"distributed rank {rank} exited {p.returncode}")
+    res = [json.loads((DIST_SCRATCH / "out" / f"result_{r}.json").read_text())
+           for r in range(DIST_RANKS)]
+    for r in res:
+        tr_, g = r["train"], r["gated"]
+        check(tr_["up"] and tr_["backend"] == "gloo" and tr_["device"].startswith("cuda"),
+              f"rank {r['rank']}: the CLI started a gloo group on the card")
+        check(tr_["iteration"] == 2 and not tr_["self_heal"] and not g["self_heal"],
+              f"rank {r['rank']}: 2 iterations, no self-heal line")
+        for run, kernel in ((tr_, trunk_int8_dx3), (g, trunk_int8_dxcat)):
+            n, fwd = run["launches"][kernel.__name__], run["forwards"]
+            others = {k: v for k, v in run["launches"].items() if k != kernel.__name__}
+            check(n > 0 and n == launches_per_forward(kernel) * fwd and not any(others.values()),
+                  f"rank {r['rank']}: {kernel.__name__} launches {n} == "
+                  f"{launches_per_forward(kernel)} x forwards {fwd}, no other trunk ({others})")
+        check(g["gate_games"] == 40 and sum(g["wld"]) == 40, f"rank {r['rank']}: 40 gate games")
+    a, b = res
+    check(a["train"]["params"] == b["train"]["params"]
+          and a["train"]["buffer_filled"] == b["train"]["buffer_filled"],
+          "both ranks end cli train with equal parameters and buffer fill")
+    check(all(a["gated"][k] == b["gated"][k] for k in ("params", "best", "win_rate", "wld",
+                                                       "adopted")),
+          "both ranks end the gated iteration equal and make the same decision")
+    check(a["sgd"]["params"] == b["sgd"]["params"] and a["sgd"]["loss"] == b["sgd"]["loss"],
+          "both ranks end the SGD step equal")
+
+    # 3. the 2-rank SGD step against the single-process full-batch step
+    want, loss = sgd_step(*step_inputs(engine, dev), dev)
+    got = torch.load(DIST_SCRATCH / "out" / "sgd_0.pt", weights_only=True)
+
+    def worst(names):  # largest |2 ranks - 1 process| / (atol 1e-6 + rtol 1e-4 * |1 process|)
+        return max(float(((got[k].double() - want[k].double()).abs()
+                          / (1e-6 + 1e-4 * want[k].double().abs())).max()) for k in names)
+
+    floats = [k for k in want if want[k].is_floating_point()]
+    params_worst = worst([k for k in floats if "running" not in k])
+    stats_worst = worst([k for k in floats if "running" in k])
+    loss_diff = abs(a["sgd"]["loss"] / loss - 1)
+    phase("distributed", nccl={"world_size": 1, "backend": "nccl", "seconds": round(nccl_s, 3)},
+          ranks=DIST_RANKS, backend="gloo", config="configs/run_flagship_r5.yaml",
+          games_per_rank=DIST_CUT["training"]["self_play_episodes_per_iter"] // DIST_RANKS,
+          simulations=DIST_CUT["mcts"]["num_simulations"],
+          batch_per_rank=DIST_CUT["training"]["batch_size"] // DIST_RANKS,
+          train=[{k: r["train"][k] for k in ("seconds", "total_s", "forwards", "buffer_filled")}
+                 | {"int8_dx3_launches": r["train"]["launches"]["trunk_int8_dx3"]} for r in res],
+          gated=[{k: r["gated"][k] for k in ("seconds", "total_s", "forwards", "wld",
+                                             "win_rate", "adopted")}
+                 | {"int8_dxcat_launches": r["gated"]["launches"]["trunk_int8_dxcat"]}
+                 for r in res],
+          sgd_loss_rel_diff=loss_diff, sgd_params_worst_over_tolerance=params_worst,
+          sgd_stats_worst_over_tolerance=stats_worst, ranks_s=round(ranks_s, 3),
+          total_s=round(time.perf_counter() - t0, 3))
+    check(loss_diff <= 1e-4, "2-rank SGD loss == the single-process step's (rtol 1e-4)")
+    check(params_worst <= 1.0 and stats_worst <= 1.0,
+          "2-rank SGD step == the single-process full-batch step (rtol 1e-4, atol 1e-6)")
+    shutil.rmtree(DIST_SCRATCH, ignore_errors=True)
+
+
 def bench_phase() -> tuple:
     """The port's bench in process: ``--mode all --repeats 1`` (random_step
     launched once a ply), then ``--mode mcts --net-variant int8``
@@ -1501,6 +1814,7 @@ def main() -> int:
     m9_launches = train_iteration(dev)
     dxcat_launches = gating_phase()
     cli_phase(engine, dev)
+    distributed_phase(engine, dev)
     step_launches, int8_launches = bench_phase()
     variant_launches = benchmark_model_phase()
 
@@ -1676,4 +1990,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--distributed-rank"]:
+        sys.exit(distributed_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

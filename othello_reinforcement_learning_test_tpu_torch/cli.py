@@ -13,10 +13,14 @@ Differences from the JAX CLI:
 - devices: ``--device auto`` (and ``system.device: "auto"`` in a config)
   means CUDA, ``cpu`` the CPU. Nothing probes the card or falls back to the
   CPU: without CUDA, ``auto`` raises;
-- ``train --coordinator`` / ``--num-processes`` / ``--process-id`` (and
-  ``$OTHELLO_COORDINATOR``) exit with an error: multi-process data
-  parallelism is not ported yet, as the trainer refuses
-  ``system.mesh_devices``;
+- ``train --coordinator host:port --num-processes N --process-id i`` (or
+  ``$OTHELLO_COORDINATOR``, ``$OTHELLO_NUM_PROCESSES``,
+  ``$OTHELLO_PROCESS_ID``) joins a ``torch.distributed`` process group, one
+  process a device: NCCL on CUDA (one card a rank), gloo on the CPU. Under
+  torchrun (``torchrun --nproc-per-node N -m
+  othello_reinforcement_learning_test_tpu_torch.cli train ...``) its
+  environment does the same. As in the JAX CLI, ``--num-processes`` and
+  ``--process-id`` without a coordinator are ignored;
 - checkpoints are the port's ``.pt`` files (``train/checkpoint.py``) or
   reference-format ``.pt`` files; the JAX package's orbax directories need
   JAX and are not read;
@@ -60,12 +64,28 @@ def train_command(args) -> None:
     from .train.trainer import AlphaZeroTrainer
     from .utils.config import load_config
 
-    if (args.coordinator or os.environ.get("OTHELLO_COORDINATOR")
-            or args.num_processes is not None or args.process_id is not None):
-        raise SystemExit(
-            "--coordinator / --num-processes / --process-id (multi-process data-parallel "
-            "training) are not ported yet: ROADMAP.md section 1, the data-parallel slice")
     config = load_config(args.config)
+    device = config.get("system", {}).get("device", "auto")
+
+    # multi-process bring-up (flag, environment or torchrun) before the
+    # trainer: every process runs this command with its own --process-id
+    coordinator = args.coordinator or os.environ.get("OTHELLO_COORDINATOR")
+    torchrun = int(os.environ.get("WORLD_SIZE", 1)) > 1 and "MASTER_ADDR" in os.environ
+    if coordinator or torchrun:
+        from .parallel import mesh
+
+        if coordinator:
+            num_processes = args.num_processes or int(os.environ.get("OTHELLO_NUM_PROCESSES", 0))
+            process_id = (args.process_id if args.process_id is not None
+                          else int(os.environ.get("OTHELLO_PROCESS_ID", -1)))
+            if num_processes <= 0 or process_id < 0:
+                raise SystemExit("--coordinator requires --num-processes and --process-id "
+                                 "(or OTHELLO_NUM_PROCESSES / OTHELLO_PROCESS_ID)")
+            mesh.initialize_distributed(coordinator, num_processes, process_id, device=device)
+        else:
+            mesh.initialize_distributed(device=device)
+        print(f"distributed: process {mesh.process_index()}/{mesh.process_count()} up, "
+              f"{mesh.process_count()} global devices")
 
     print("=" * 70)
     print("AlphaZero Training (PyTorch/CUDA)")
@@ -288,13 +308,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p_train.add_argument(
         "--coordinator", type=str, default=None,
-        help="multi-process data parallelism (or $OTHELLO_COORDINATOR): not ported "
-             "yet, refused",
+        help="multi-process: coordinator address host:port "
+             "(or $OTHELLO_COORDINATOR); run one process per device",
     )
-    p_train.add_argument("--num-processes", type=int, default=None,
-                         help="multi-process data parallelism: not ported yet, refused")
-    p_train.add_argument("--process-id", type=int, default=None,
-                         help="multi-process data parallelism: not ported yet, refused")
+    p_train.add_argument("--num-processes", type=int, default=None)
+    p_train.add_argument("--process-id", type=int, default=None)
     p_train.set_defaults(func=train_command)
 
     p_eval = sub.add_parser("eval", help="Evaluate the model")

@@ -5,20 +5,24 @@ N games of a match run in lockstep, colours alternating by game index
 (player 1 is black in even games). Both players act on every board at every
 step and the mover's action is picked by parity; finished games are frozen.
 The JAX package's jitted ``while_loop`` is a host loop over plies here, with
-the same cap (``max_game_length``). Data parallelism (the JAX ``mesh``) is
-not ported.
+the same cap (``max_game_length``). The JAX ``mesh`` is ``shard=(rank,
+world)``: each rank plays its slice of the match's games, with every random
+draw (the players' and the openings') taken at the match's shape and
+sliced, and the per-game outcomes are all-gathered in game order, so every
+rank builds the same summary and a gate makes the same decision.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.bitboard import OthelloEngine
+from ..parallel.mesh import all_gather_leading, shard_rows
 from ..train.self_play import max_game_length
 from ..utils.device import resolve_device
 from .players import Player, uniform_legal
@@ -54,12 +58,15 @@ class MatchSummary:
 
 class Arena:
     """Plays batched matches between two players on ``device`` (CUDA unless
-    ``"cpu"`` is asked for)."""
+    ``"cpu"`` is asked for); with ``shard=(rank, world)`` this rank plays
+    its slice of each match (see the module docstring)."""
 
-    def __init__(self, engine: OthelloEngine, verbose: bool = False, device=None):
+    def __init__(self, engine: OthelloEngine, verbose: bool = False, device=None,
+                 shard: Optional[Tuple[int, int]] = None):
         self.engine = engine
         self.verbose = verbose
         self.device = resolve_device(device)
+        self.shard = shard
 
     @torch.no_grad()
     def play_matches(self, player1: Player, player2: Player, num_games: int, seed: int = 0,
@@ -73,19 +80,24 @@ class Arena:
         eng, dev = self.engine, self.device
         t0 = time.time()
         gen = torch.Generator(device=dev).manual_seed(seed)
-        boards = eng.initial_state((num_games,), device=dev)
-        p1_black = torch.arange(num_games, device=dev) % 2 == 0
+        rows = shard_rows(num_games, self.shard)
+        games = torch.arange(num_games, device=dev)[rows[1] if rows else slice(None)]
+        boards = eng.initial_state((games.shape[0],), device=dev)
+        p1_black = games % 2 == 0
         for _ in range(max_game_length(eng.size)):
             live = ~eng.is_terminal(boards)
             if not bool(live.any()):
                 break
-            a1 = player1.act(boards, gen)
-            a2 = player2.act(boards, gen)
+            # a player's rows only in a sharded match: players written for
+            # whole matches keep act(boards, generator)
+            extra = () if rows is None else (rows,)
+            a1 = player1.act(boards, gen, *extra)
+            a2 = player2.act(boards, gen, *extra)
             p1_to_move = (boards.move_count % 2 == 0) == p1_black
             action = torch.where(p1_to_move, a1, a2)
             if opening_random_plies > 0:
                 action = torch.where(boards.move_count < opening_random_plies,
-                                     uniform_legal(eng, boards, gen), action)
+                                     uniform_legal(eng, boards, gen, rows), action)
             nxt, _ = eng.step(boards, action)
             boards = type(boards)(*(torch.where(live, n, o) for n, o in zip(nxt, boards)))
 
@@ -99,8 +111,10 @@ class Arena:
         white = torch.where(black_to_move, c_opp, c_me)
         p1_score = torch.where(p1_black, black, white)
         p2_score = torch.where(p1_black, white, black)
-        w_p1, p1_score, p2_score, moves = (t.cpu().numpy() for t in
-                                           (w_p1, p1_score, p2_score, boards.move_count))
+        outcome = (w_p1, p1_score, p2_score, boards.move_count)
+        if rows is not None:
+            outcome = all_gather_leading(outcome)
+        w_p1, p1_score, p2_score, moves = (t.cpu().numpy() for t in outcome)
         duration = time.time() - t0
 
         results = [MatchResult(player1=player1.name, player2=player2.name, winner=int(w_p1[i]),

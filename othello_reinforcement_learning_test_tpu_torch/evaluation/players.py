@@ -2,9 +2,12 @@
 
 Port of ``othello_reinforcement_learning_test_tpu/evaluation/players.py``.
 A player maps a whole batch of boards to a batch of actions, so an arena
-runs all its games in lockstep. ``act(boards, generator)`` takes the
+runs all its games in lockstep. ``act(boards, generator, rows)`` takes the
 generator that draws any randomness (on the boards' device) and returns
-``(B,) int64`` actions on the boards' device.
+``(B,) int64`` actions on the boards' device; ``rows``, when given, says
+that the boards are those rows of a global batch (a rank's share of a
+sharded match), and a player that draws takes its draws at the global
+shape, so that every rank draws as the unsharded match does.
 
 The JAX package's ``stateless()`` (one jitted match program per pair of
 player types) has no counterpart: PyTorch runs eagerly. Its host-side
@@ -23,6 +26,7 @@ import torch
 from ..models.torch_bridge import infer_architecture
 from ..ops import bits
 from ..ops.bitboard import Board, OthelloEngine, get_engine
+from ..parallel.mesh import Rows
 from ..search import mcts
 from ..train.self_play import _sample
 
@@ -32,18 +36,20 @@ class Player:
 
     name = "player"
 
-    def act(self, boards: Board, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def act(self, boards: Board, generator: Optional[torch.Generator] = None,
+            rows: Optional[Rows] = None) -> torch.Tensor:
         raise NotImplementedError
 
     def reset(self) -> None:
         """Session hook: a new game or match starts."""
 
 
-def uniform_legal(engine: OthelloEngine, boards: Board,
-                  generator: torch.Generator) -> torch.Tensor:
+def uniform_legal(engine: OthelloEngine, boards: Board, generator: torch.Generator,
+                  rows: Optional[Rows] = None) -> torch.Tensor:
     """One action per board, uniform over its legal actions, drawn from
-    ``generator`` as self-play samples its moves."""
-    return _sample(engine.legal_actions(boards).to(torch.float32), generator)
+    ``generator`` as self-play samples its moves (at the global shape with
+    ``rows``)."""
+    return _sample(engine.legal_actions(boards).to(torch.float32), generator, rows)
 
 
 class RandomPlayer(Player):
@@ -54,8 +60,9 @@ class RandomPlayer(Player):
     def __init__(self, engine: OthelloEngine):
         self.engine = engine
 
-    def act(self, boards: Board, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return uniform_legal(self.engine, boards, generator)
+    def act(self, boards: Board, generator: Optional[torch.Generator] = None,
+            rows: Optional[Rows] = None) -> torch.Tensor:
+        return uniform_legal(self.engine, boards, generator, rows)
 
 
 class GreedyPlayer(Player):
@@ -69,7 +76,8 @@ class GreedyPlayer(Player):
     def __init__(self, engine: OthelloEngine):
         self.engine = engine
 
-    def act(self, boards: Board, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def act(self, boards: Board, generator: Optional[torch.Generator] = None,
+            rows: Optional[Rows] = None) -> torch.Tensor:
         eng = self.engine
         legal = eng.legal_actions(boards)
         n_sq = eng.pass_action
@@ -97,7 +105,8 @@ class MCTSPlayer(Player):
         self.c_puct = c_puct
 
     @torch.no_grad()
-    def act(self, boards: Board, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def act(self, boards: Board, generator: Optional[torch.Generator] = None,
+            rows: Optional[Rows] = None) -> torch.Tensor:
         res = mcts.search(self.engine, self.net, boards, self.num_simulations,
                           c_puct=self.c_puct, add_noise=False)
         return mcts.best_action(res.visit_counts, res.legal)
@@ -185,7 +194,8 @@ class _HostPlayer(Player):
             actions[i] = a
         return actions
 
-    def act(self, boards: Board, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def act(self, boards: Board, generator: Optional[torch.Generator] = None,
+            rows: Optional[Rows] = None) -> torch.Tensor:
         legal = self.engine.legal_actions(boards).cpu().numpy()
         actions = self._host_act(boards.me.cpu().numpy().view(np.uint64),
                                  boards.opp.cpu().numpy().view(np.uint64),
@@ -326,10 +336,11 @@ class EdaxPlayer(_HostPlayer):
                 cells.append(me_ch if me_w >> b & 1 else opp_ch if opp_w >> b & 1 else "-")
         return self._query_move("".join(cells), me_ch)
 
-    def act(self, boards: Board, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def act(self, boards: Board, generator: Optional[torch.Generator] = None,
+            rows: Optional[Rows] = None) -> torch.Tensor:
         if self.binary is None:
-            return self._fallback.act(boards, generator)
-        return super().act(boards, generator)
+            return self._fallback.act(boards, generator, rows)
+        return super().act(boards, generator, rows)
 
 
 class NativeMinimaxPlayer(_HostPlayer):
@@ -368,7 +379,8 @@ class HumanPlayer(Player):
         self.engine = engine
         self.input_fn = input_fn
 
-    def act(self, boards: Board, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def act(self, boards: Board, generator: Optional[torch.Generator] = None,
+            rows: Optional[Rows] = None) -> torch.Tensor:
         legal = self.engine.legal_actions(boards).cpu().numpy()
         if legal.shape[0] != 1:
             raise ValueError("HumanPlayer plays one game at a time")

@@ -19,7 +19,13 @@ give:
 - ``train=True`` normalises with the batch statistics, mean and *biased*
   variance taken as E[x^2] - E[x]^2 (flax's fast variance), and updates
   the running statistics in place as ``ra = 0.99 * ra + 0.01 * batch``;
-- ``train=False`` uses the running statistics (eps 1e-5).
+- ``train=False`` uses the running statistics (eps 1e-5);
+- under a process group of more than one rank, ``train=True`` takes the
+  global batch's moments: each rank's mean and E[x^2] are averaged over the
+  ranks (``parallel.mesh.global_mean``, differentiable) before the
+  variance is formed, as flax's statistics are over JAX's global batch
+  axis; the running statistics update from them. ``nn.SyncBatchNorm``
+  forms another variance and is not used.
 
 The module's own ``train()``/``eval()`` mode is not read: ``train`` is an
 argument, as in flax. The self-play path runs the stem, the trunk kernel
@@ -34,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
 from .convert import from_jax_variables, init_train_variables
 
 BN_MOMENTUM = 0.99  # flax nn.BatchNorm default: ra = m * ra + (1 - m) * batch
@@ -50,7 +57,10 @@ class BatchNorm(nn.BatchNorm2d):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
             mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            sq = (xf * xf).mean(dim=(0, 2, 3))
+            if mesh.process_count() > 1:
+                mean, sq = mesh.global_mean(torch.stack([mean, sq]))
+            var = torch.clamp_min(sq - mean * mean, 0.0)
             with torch.no_grad():
                 self.running_mean.copy_(BN_MOMENTUM * self.running_mean
                                         + (1 - BN_MOMENTUM) * mean)

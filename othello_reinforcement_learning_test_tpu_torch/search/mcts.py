@@ -16,6 +16,14 @@ Semantics, as in the reference: canonical PUCT (the parent maximizes
 optional root Dirichlet noise, terminal leaves valued by the game's winner,
 sign-flipping backup, and root statistics updated by every backup. Argmax
 ties go to the lowest index (``torch.argmax``).
+
+No collective runs inside the search. Under data parallelism each rank
+searches its own games, its loops (the select walk's liveness test
+included) are its own, and nothing the search computes crosses ranks; the
+root noise of a rank's games is its rows of the draw at the global batch's
+shape (``rows``). That is why the port's ``global`` self-play design needs
+no all-reduced liveness condition, where the JAX program lowers it to one
+under a mesh.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from ..ops.bitboard import Board, OthelloEngine
+from ..parallel.mesh import Rows, draw_rows
 
 NO_CHILD = -1
 
@@ -122,10 +131,14 @@ def masked_probs(log_probs: torch.Tensor, legal: torch.Tensor) -> torch.Tensor:
 
 def add_dirichlet_noise(generator: torch.Generator, prior: torch.Tensor,
                         legal: torch.Tensor, alpha: float,
-                        eps: float) -> torch.Tensor:
+                        eps: float, rows: Optional[Rows] = None) -> torch.Tensor:
     """Mix the root prior with Dirichlet(alpha) noise over legal actions:
-    ``(1 - eps) * prior + eps * noise``, zero on illegal actions."""
-    gamma = torch._standard_gamma(torch.full_like(prior, alpha), generator=generator)
+    ``(1 - eps) * prior + eps * noise``, zero on illegal actions. With
+    ``rows``, the games are those rows of a global batch, and the gamma
+    draws are taken at its shape."""
+    gamma = draw_rows(lambda shape: torch._standard_gamma(
+        torch.full(shape, alpha, dtype=prior.dtype, device=prior.device),
+        generator=generator), prior.shape, rows)
     gamma = gamma * legal
     noise = gamma / gamma.sum(dim=-1, keepdim=True).clamp_min(1e-8)
     return torch.where(legal, (1.0 - eps) * prior + eps * noise, 0.0)
@@ -148,9 +161,13 @@ def _puct_best(tree: Tree, c_puct: float) -> Tuple[torch.Tensor, torch.Tensor]:
     return act_star, child_star
 
 
-def _select(tree: Tree, c_puct: float) -> _Selection:
+def _select(tree: Tree, c_puct: float, cond_interval: int = 1) -> _Selection:
     """Walk every game from its root by PUCT until an unexpanded edge or a
-    terminal node, in lockstep; the loop runs until no walker is left."""
+    terminal node, in lockstep; the loop runs until no walker is left.
+
+    The liveness test is a host sync; with ``cond_interval`` k it runs once
+    every k walk steps. A step is a no-op for finished walkers (every
+    update is gated on ``walking``), so the result is the same for any k."""
     B, n_slots = tree.visit.shape
     dev = tree.visit.device
     path = torch.full((B, n_slots), -1, dtype=torch.int64, device=dev)
@@ -163,7 +180,9 @@ def _select(tree: Tree, c_puct: float) -> _Selection:
     depth = torch.zeros(B, dtype=torch.int64, device=dev)
     stop_term = tree.terminal[:, 0].clone()
     walking = ~stop_term & (action == NO_CHILD)
-    while bool(walking.any()):
+    steps = 0
+    while steps % cond_interval or bool(walking.any()):
+        steps += 1
         act = act_star.gather(1, node[:, None])[:, 0]
         child = child_star.gather(1, node[:, None])[:, 0]
         descend = walking & (child != NO_CHILD)
@@ -289,14 +308,18 @@ def search(engine: OthelloEngine, net: Net, boards: Board, num_simulations: int,
            c_puct: float = 1.0, dirichlet_alpha: float = 0.3,
            dirichlet_epsilon: float = 0.25, add_noise: bool = False,
            generator: Optional[torch.Generator] = None,
-           root_cache: Optional[RootCache] = None, return_tree: bool = False):
+           root_cache: Optional[RootCache] = None, return_tree: bool = False,
+           cond_interval: int = 1, rows: Optional[Rows] = None):
     """Batched MCTS from a batch of root boards (one batch axis). Returns a
     :class:`SearchResult`, or ``(SearchResult, Tree)`` with ``return_tree``.
 
     ``net``: (B, S, S, 3) f32 -> (log_probs (B, A), value (B, 1)), eval
     mode. ``generator`` draws the root noise (needed with ``add_noise``).
     ``root_cache`` supplies the root evaluation from a previous search's
-    tree and skips the root observe and forward.
+    tree and skips the root observe and forward. ``cond_interval``
+    decimates the select walk's liveness test (:func:`_select`); results
+    are the same for any value. ``rows``: the boards are those rows of a
+    global batch, whose root noise is drawn at the global shape.
     """
     if boards.me.dim() != 1:
         raise ValueError("search expects a single batch axis")
@@ -312,13 +335,13 @@ def search(engine: OthelloEngine, net: Net, boards: Board, num_simulations: int,
         prior0, root_value0, legal0, term0, win0 = root_cache
     if add_noise:
         prior0 = add_dirichlet_noise(generator, prior0, legal0, dirichlet_alpha,
-                                     dirichlet_epsilon)
+                                     dirichlet_epsilon, rows)
 
     tree = _init_tree(n_slots, boards.me, boards.opp, prior0, legal0, term0,
                       win0, root_value0)
     zeros = torch.zeros_like(boards.move_count)
     for _ in range(num_simulations):
-        sel = _select(tree, c_puct)
+        sel = _select(tree, c_puct, cond_interval)
         parent = Board(me=_rows(tree.board_me, sel.parent),
                        opp=_rows(tree.board_opp, sel.parent),
                        move_count=zeros, passed=zeros.to(torch.bool))

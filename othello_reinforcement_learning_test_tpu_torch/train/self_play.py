@@ -16,17 +16,24 @@ each step the game's outcome from that step's mover's view.
   forward.
 
 The JAX ``while_loop`` is a Python loop over plies that stops when no game
-is live. The mesh and ``cond_interval`` arguments of the JAX version are not
-ported (they belong to the data-parallel slice).
+is live; ``cond_interval`` k tests that (a host sync) once every k plies,
+and the search's walk likewise. The JAX ``mesh`` is ``shard=(rank,
+world)``: the rank plays its slice of the global batch, and takes every
+random draw (root noise, sampled actions) at the global batch's shape from
+the one seeded generator, then slices it. So the ranks' trajectories,
+concatenated in rank order, are the unsharded run's on a network whose rows
+do not depend on the batch (the int8 trunks' per-block scale does).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..ops.bitboard import OthelloEngine
+from ..parallel import mesh
+from ..parallel.mesh import Rows, draw_rows, shard_rows
 from ..search import mcts
 from ..utils.device import resolve_device
 
@@ -51,11 +58,27 @@ def max_game_length(size: int) -> int:
     return 2 * size * size + 4
 
 
-def _sample(probs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def auto_cond_interval(process_count: Optional[int] = None,
+                       platform: Optional[str] = None) -> int:
+    """The default ``cond_interval`` (``self_play.cond_interval`` unset or
+    ``"auto"``), the JAX package's rule: 4 when more than one process runs
+    off a TPU, else 1. ``platform`` defaults to this process's, which is
+    never ``"tpu"`` here."""
+    if process_count is None:
+        process_count = mesh.process_count()
+    if process_count <= 1 or platform == "tpu":
+        return 1
+    return 4
+
+
+def _sample(probs: torch.Tensor, generator: torch.Generator,
+            rows: Optional[Rows] = None) -> torch.Tensor:
     """One categorical draw per row by the Gumbel-max trick; actions with
-    zero probability have a -inf logit and are never drawn."""
+    zero probability have a -inf logit and are never drawn. With ``rows``,
+    the uniforms are those rows of a draw at the global batch's shape."""
     logits = torch.where(probs > 0, torch.log(probs.clamp_min(1e-30)), -torch.inf)
-    u = torch.rand(probs.shape, generator=generator, device=probs.device)
+    u = draw_rows(lambda shape: torch.rand(shape, generator=generator, device=probs.device),
+                  probs.shape, rows)
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
@@ -69,11 +92,15 @@ def play_games(engine: OthelloEngine, net: mcts.Net, num_games: int,
                num_simulations: int, c_puct: float = 1.0,
                dirichlet_alpha: float = 0.3, dirichlet_epsilon: float = 0.25,
                temperature_threshold: int = 15, add_noise: bool = True,
-               seed: int = 0, device=None) -> Trajectory:
+               seed: int = 0, device=None, cond_interval: int = 1,
+               shard: Optional[Tuple[int, int]] = None) -> Trajectory:
     """Play ``num_games`` complete games in lockstep on ``device`` (CUDA
     unless ``"cpu"`` is asked for). ``net`` maps (B, S, S, 3) features on
     that device to ``(log_probs, value)``; ``seed`` seeds the generator that
-    draws the root noise and the sampled actions."""
+    draws the root noise and the sampled actions. ``cond_interval``: test
+    liveness every that many plies and walk steps (the same results for
+    any value). ``shard=(rank, world)``: play only that rank's slice of the
+    ``num_games`` (see the module docstring)."""
     # Root-eval reuse needs the sampled action's child to be expanded, which
     # holds only when at least one simulation ran.
     if num_simulations < 1:
@@ -82,7 +109,9 @@ def play_games(engine: OthelloEngine, net: mcts.Net, num_games: int,
             "root-eval reuse depends on the chosen action's child being expanded")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    B, T, A = num_games, max_game_length(engine.size), engine.num_actions
+    rows = shard_rows(num_games, shard)
+    B = num_games if rows is None else rows[1].stop - rows[1].start
+    T, A = max_game_length(engine.size), engine.num_actions
 
     boards = engine.initial_state((B,), device=dev)
     t_me = torch.zeros((B, T), dtype=torch.int64, device=dev)
@@ -100,17 +129,17 @@ def play_games(engine: OthelloEngine, net: mcts.Net, num_games: int,
 
     for t in range(T):
         live = ~cache.terminal
-        if not bool(live.any()):
+        if t % cond_interval == 0 and not bool(live.any()):
             break
         res, tree = mcts.search(
             engine, net, boards, num_simulations, c_puct=c_puct,
             dirichlet_alpha=dirichlet_alpha, dirichlet_epsilon=dirichlet_epsilon,
             add_noise=add_noise, generator=gen, root_cache=cache,
-            return_tree=True)
+            return_tree=True, cond_interval=cond_interval, rows=rows)
         pi = mcts.action_probs_from_counts(res.visit_counts, res.legal, 1.0)
         temp = torch.where(boards.move_count < temperature_threshold, 1.0, 0.0)
         action = _sample(
-            mcts.action_probs_from_counts(res.visit_counts, res.legal, temp), gen)
+            mcts.action_probs_from_counts(res.visit_counts, res.legal, temp), gen, rows)
 
         t_me[:, t] = torch.where(live, boards.me, 0)
         t_opp[:, t] = torch.where(live, boards.opp, 0)

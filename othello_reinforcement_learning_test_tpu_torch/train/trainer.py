@@ -44,9 +44,27 @@ Semantics kept from the JAX package:
   gating on and no best network in the checkpoint, best is the restored
   candidate.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: data parallelism (``system.mesh_devices``, the data-parallel
-slice; ``ROADMAP.md`` lists it).
+Data parallelism (the JAX ``dp`` mesh) runs over a ``torch.distributed``
+process group, one device a rank (``parallel/mesh.py``); ``system.mesh_devices``
+is the world size the run expects. Under a group of W > 1 ranks:
+
+- self-play: each rank plays ``ceil(games / W)`` games, seeded by
+  ``fold_in_process`` of the drawn seed (``system.distributed_self_play:
+  local``, the default off a TPU), or its shard of the global batch from
+  the one drawn seed (``global``); the trajectories are all-gathered in rank
+  order and every rank adds them to its own buffer, so the buffers stay
+  identical;
+- SGD: every rank draws the same global minibatch (and augmentation) and
+  keeps its slice; BatchNorm takes the global moments, the parameter
+  gradients are averaged over the ranks (the full batch's gradient), the
+  logged losses too; prioritized replay all-gathers the TD errors before
+  updating priorities;
+- the gate match shards its games over the ranks, and every rank makes the
+  same decision;
+- rank 0 writes checkpoints while the others wait; each rank writes its
+  metrics (rank r > 0 under ``<log_dir>/rank{r}``);
+- a failed iteration is re-raised on the rank that failed, never healed:
+  a local restore while the peers wait in a collective would hang them.
 """
 
 from __future__ import annotations
@@ -65,11 +83,12 @@ from ..models.convert import from_jax_variables, init_train_variables, to_jax_va
 from ..models.fused_resnet import PORTED_VARIANTS, FusedInference
 from ..models.resnet import OthelloResNet, param_count
 from ..ops.bitboard import OthelloEngine, get_engine
-from ..utils.device import resolve_device
+from ..parallel import mesh
+from ..parallel.mesh import Rows, draw_rows
 from ..utils.metrics import MetricsWriter
 from . import buffer as buffer_lib
 from . import checkpoint as ckpt_lib
-from .self_play import Trajectory, play_games
+from .self_play import Trajectory, auto_cond_interval, play_games
 
 
 @dataclasses.dataclass
@@ -141,37 +160,68 @@ def optimizer_step(state: TrainState, schedule: Callable[[int], float]) -> None:
 
 def _sgd_step(state: TrainState, loss: torch.Tensor,
               schedule: Callable[[int], float]) -> None:
+    """Backward, the gradients averaged over the ranks of a process group,
+    one optimizer step."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if mesh.process_count() > 1:
+        mesh.all_reduce_mean_grads(state.model)
     optimizer_step(state, schedule)
+
+
+def _metrics(total: torch.Tensor, pl: torch.Tensor, vl: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The step's losses, their means over the ranks of a process group (the
+    global batch's losses); they stay on the device."""
+    losses = torch.stack([total, pl, vl]).detach()
+    if mesh.process_count() > 1:
+        losses = mesh.global_mean(losses)
+    return dict(zip(("loss", "policy_loss", "value_loss"), losses.unbind()))
 
 
 def train_on_batch(state: TrainState, feats: torch.Tensor, pi: torch.Tensor,
                    value: torch.Tensor, schedule: Callable[[int], float],
                    compute_dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
-    """One SGD step on a given batch; the losses stay on the device."""
+    """One SGD step on a given batch (under a process group, this rank's
+    share of the global batch)."""
     total, pl, vl = loss_fn(state.model, feats, pi, value, compute_dtype)
     _sgd_step(state, total, schedule)
-    return {"loss": total.detach(), "policy_loss": pl.detach(), "value_loss": vl.detach()}
+    return _metrics(total, pl, vl)
+
+
+def _rank_rows(batch_size: int) -> Optional[Rows]:
+    """This rank's rows of a global minibatch, None without a process group
+    of more than one rank."""
+    if mesh.process_count() == 1:
+        return None
+    return batch_size, mesh.local_slice(batch_size)
 
 
 def _augment(engine: OthelloEngine, feats: torch.Tensor, pi: torch.Tensor,
-             generator: torch.Generator):
-    """One uniformly drawn D4 image of each (features, pi) pair."""
+             generator: torch.Generator, rows: Optional[Rows] = None):
+    """One uniformly drawn D4 image of each (features, pi) pair; with
+    ``rows`` the pairs are those rows of a global batch, and the images
+    are drawn at its shape."""
     f8, p8 = engine.symmetries(feats, pi)
-    rows = torch.arange(feats.shape[0], device=feats.device)
-    which = torch.randint(0, 8, (feats.shape[0],), generator=generator, device=feats.device)
-    return f8[rows, which], p8[rows, which]
+    index = torch.arange(feats.shape[0], device=feats.device)
+    which = draw_rows(lambda shape: torch.randint(0, 8, shape, generator=generator,
+                                                  device=feats.device),
+                      (feats.shape[0],), rows)
+    return f8[index, which], p8[index, which]
 
 
 def train_step(state: TrainState, engine: OthelloEngine, buf: buffer_lib.ReplayBuffer,
                generator: torch.Generator, batch_size: int,
                schedule: Callable[[int], float], augment: bool = False,
                compute_dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
-    """One SGD minibatch step drawn from the buffer (one reference "epoch")."""
+    """One SGD minibatch step drawn from the buffer (one reference "epoch").
+    Under a process group every rank draws the global minibatch and trains
+    on its slice."""
     feats, pi, v = buffer_lib.sample(buf, generator, engine, batch_size)
+    rows = _rank_rows(batch_size)
+    if rows is not None:
+        feats, pi, v = feats[rows[1]], pi[rows[1]], v[rows[1]]
     if augment:
-        feats, pi = _augment(engine, feats, pi, generator)
+        feats, pi = _augment(engine, feats, pi, generator, rows)
     return train_on_batch(state, feats, pi, v, schedule, compute_dtype)
 
 
@@ -191,19 +241,31 @@ def train_step_prioritized(state: TrainState, engine: OthelloEngine,
                            compute_dtype: torch.dtype = torch.bfloat16
                            ) -> Dict[str, torch.Tensor]:
     """Proportional draw, importance-weighted losses, one SGD step, then
-    the drawn entries' priorities set from their TD errors."""
+    the drawn entries' priorities set from their TD errors. Under a process
+    group each rank trains on its slice of the global draw, normalised by
+    the global weights' sum over W (so the ranks' mean is the global loss),
+    and the TD errors are all-gathered before the priorities update."""
     feats, pi, v, idx, weights = buffer_lib.sample_prioritized(buf, generator, engine,
                                                                batch_size)
+    norm = weights.sum()
+    rows = _rank_rows(batch_size)
+    if rows is not None:
+        feats, pi, v, weights = (t[rows[1]] for t in (feats, pi, v, weights))
+        norm = norm / torch.tensor(float(mesh.process_count()), dtype=norm.dtype,
+                                   device=norm.device)
     if augment:
-        feats, pi = _augment(engine, feats, pi, generator)
+        feats, pi = _augment(engine, feats, pi, generator, rows)
     log_probs, value = state.model(feats, train=True, compute_dtype=compute_dtype)
-    pl = -torch.sum(weights * torch.sum(pi * log_probs, dim=-1)) / weights.sum()
+    pl = -torch.sum(weights * torch.sum(pi * log_probs, dim=-1)) / norm
     err = value[:, 0] - v[:, 0]
-    vl = torch.sum(weights * err ** 2) / weights.sum()
+    vl = torch.sum(weights * err ** 2) / norm
     total = pl + vl
     _sgd_step(state, total, schedule)
-    buffer_lib.update_priorities(buf, idx, err.detach().abs())
-    return {"loss": total.detach(), "policy_loss": pl.detach(), "value_loss": vl.detach()}
+    td = err.detach().abs()
+    if rows is not None:
+        td = mesh.all_gather_leading(td)
+    buffer_lib.update_priorities(buf, idx, td)
+    return _metrics(total, pl, vl)
 
 
 def apply_eval(model: OthelloResNet, compute_dtype: torch.dtype = torch.bfloat16):
@@ -232,7 +294,8 @@ class AlphaZeroTrainer:
     ``save_checkpoint``, ``load_checkpoint``), resume and self-healing.
 
     ``device``: ``None`` takes ``system.device`` (``"auto"`` means CUDA),
-    which must then be available; ``"cpu"`` runs on the CPU.
+    which must then be available; ``"cpu"`` runs on the CPU. Under a
+    process group each rank takes ``parallel.mesh.local_device`` of it.
     ``compute_dtype``: the training and ``"xla"`` self-play forward's
     compute type (bfloat16 unless given).
     """
@@ -250,20 +313,50 @@ class AlphaZeroTrainer:
         sc = config.get("system", {})
         if device is None and str(sc.get("device", "auto")) != "auto":
             device = sc["device"]
-        self.device = resolve_device(device)
+        self.device = mesh.local_device(device)
         self.compute_dtype = compute_dtype or torch.bfloat16
         self.seed = seed if seed is not None else int(sc.get("seed", 42))
-        # host generator: self-play seeds; device generator: minibatch draws
+        # host generator: self-play seeds; device generator: minibatch draws.
+        # Every rank seeds both alike.
         self.rng = torch.Generator().manual_seed(self.seed)
         self.sample_rng = torch.Generator(device=self.device).manual_seed(self._draw_seed())
         self.max_recovery_retries = int(sc.get("max_recovery_retries", 3))
-        if sc.get("mesh_devices"):
-            raise NotImplementedError(
-                "system.mesh_devices (data-parallel training) is not ported yet: "
-                "ROADMAP.md section 1, the data-parallel slice")
+        # data parallelism: one rank a process, system.mesh_devices the world
+        # size the run expects
+        self.process_count = mesh.process_count()
+        self.rank = mesh.process_index()
+        self.distributed = self.process_count > 1
+        mesh_devices = int(sc.get("mesh_devices") or self.process_count)
+        if mesh_devices != self.process_count:
+            if self.process_count == 1:
+                raise ValueError(
+                    f"system.mesh_devices: {mesh_devices} asks for {mesh_devices} data-parallel "
+                    "ranks, one process a device, and this is a single process: start "
+                    f"{mesh_devices} processes with --coordinator/--num-processes/--process-id "
+                    "(or torchrun)")
+            raise ValueError(f"system.mesh_devices: {mesh_devices} does not match the "
+                             f"{self.process_count} processes of the group")
+        self._warned_game_rounding = False
+        # the liveness tests' decimation, and the distributed self-play design
+        ci = config.get("self_play", {}).get("cond_interval")
+        if ci in (None, 0, "auto"):
+            self.cond_interval = auto_cond_interval()
+            if self.cond_interval > 1:
+                self.log(f"self_play.cond_interval auto-selected: {self.cond_interval} "
+                         f"(multi-process {self.device.type} transport is cond-latency-bound; "
+                         "set self_play.cond_interval to override)")
+        else:
+            self.cond_interval = int(ci)
+        self.distributed_self_play = str(sc.get("distributed_self_play") or "auto")
+        if self.distributed_self_play not in ("auto", "local", "global"):
+            raise ValueError("system.distributed_self_play must be auto|local|global, "
+                             f"got {self.distributed_self_play!r}")
 
         tc = config.get("training", {})
         self.batch_size = int(tc.get("batch_size", 256))
+        if self.batch_size % self.process_count:
+            raise ValueError(f"training.batch_size {self.batch_size} must divide by the "
+                             f"{self.process_count} data-parallel ranks")
         self.num_iterations = int(tc.get("num_iterations", 1000))
         self.episodes_per_iter = int(tc.get("self_play_episodes_per_iter", 100))
         self.epochs_per_iter = int(tc.get("train_epochs_per_iter", 10))
@@ -303,7 +396,8 @@ class AlphaZeroTrainer:
         self.checkpoint_dir = paths.get("checkpoint_dir", "data/models")
         self.log_dir = paths.get("log_dir", "data/logs")
         os.makedirs(self.checkpoint_dir, exist_ok=True)
-        self.writer = MetricsWriter(self.log_dir)
+        self.writer = MetricsWriter(os.path.join(self.log_dir, f"rank{self.rank}")
+                                    if self.rank else self.log_dir)
 
         mc = config.get("model", {})
         if model is None:
@@ -340,6 +434,10 @@ class AlphaZeroTrainer:
         self._heal_ckpt: Optional[str] = None
         self._pre_iter_snapshot = None
         self.last_checkpoint_seconds = 0.0
+        if self.distributed:
+            self.log(f"multi-process: rank {self.rank} of {self.process_count} "
+                     f"({torch.distributed.get_backend()}), data-parallel over "
+                     f"{self.process_count} devices")
         self.log(f"model: {self.model.num_blocks} blocks x {self.model.num_filters} "
                  f"filters, {param_count(self.model):,} params; engine: {self.engine}; "
                  f"device: {self.device}")
@@ -361,11 +459,15 @@ class AlphaZeroTrainer:
 
     def save_checkpoint(self, name: str) -> str:
         """Full checkpoint (train state, buffer, generators, config): a
-        resume from it is bit-identical to an uninterrupted run."""
+        resume from it is bit-identical to an uninterrupted run. Under a
+        process group rank 0 writes it (every rank holds the same state) and
+        the others wait for it."""
         path = os.path.join(self.checkpoint_dir, name + ckpt_lib.SUFFIX)
-        ckpt_lib.save_full(path, train_state=self.state.state_dict(),
-                           buffer=self.buffer.state_dict(), rng=self._rng_state(),
-                           config=self.config, best=self.best)
+        if self.rank == 0:
+            ckpt_lib.save_full(path, train_state=self.state.state_dict(),
+                               buffer=self.buffer.state_dict(), rng=self._rng_state(),
+                               config=self.config, best=self.best)
+        mesh.barrier()
         self._heal_ckpt = path
         self._pre_iter_snapshot = None
         return path
@@ -432,19 +534,39 @@ class AlphaZeroTrainer:
         current one."""
         return self._best_net() if self.gating_enabled else self._net(self.model)
 
+    def _play(self, net, num_games: int, add_noise: bool, seed: int, **kw) -> Trajectory:
+        return play_games(
+            self.engine, net, num_games, self.num_simulations, c_puct=self.c_puct,
+            dirichlet_alpha=self.dirichlet_alpha, dirichlet_epsilon=self.dirichlet_epsilon,
+            temperature_threshold=self.temperature_threshold, add_noise=add_noise,
+            seed=seed, device=self.device, cond_interval=self.cond_interval, **kw)
+
     def run_self_play(self, num_games: int, add_noise: bool = True) -> Trajectory:
+        """``num_games`` games from the self-play network. Under a process
+        group every rank returns the global trajectory (see the module
+        docstring); ``num_games`` rounds up to a multiple of the ranks."""
         net = self.selfplay_net()
+        if self.distributed:
+            world = self.process_count
+            per = -(-num_games // world)
+            total = per * world
+            if total != num_games and not self._warned_game_rounding:
+                self._warned_game_rounding = True
+                self.log(f"distributed: rounding {num_games} games/iter up to {total} "
+                         f"({per}/process) for even sharding")
+            seed = self._draw_seed()
+            design = "local" if self.distributed_self_play == "auto" else self.distributed_self_play
+            if design == "global":
+                traj = self._play(net, total, add_noise, seed, shard=(self.rank, world))
+            else:
+                traj = self._play(net, per, add_noise, mesh.fold_in_process(seed))
+            return mesh.all_gather_leading(traj)
         chunk = self.num_parallel_games or num_games
         chunks = []
         remaining = num_games
         while remaining > 0:
             n = min(chunk, remaining)
-            chunks.append(play_games(
-                self.engine, net, n, self.num_simulations, c_puct=self.c_puct,
-                dirichlet_alpha=self.dirichlet_alpha,
-                dirichlet_epsilon=self.dirichlet_epsilon,
-                temperature_threshold=self.temperature_threshold, add_noise=add_noise,
-                seed=self._draw_seed(), device=self.device))
+            chunks.append(self._play(net, n, add_noise, self._draw_seed()))
             remaining -= n
         return _concat(chunks)
 
@@ -455,13 +577,16 @@ class AlphaZeroTrainer:
     def _gate_match(self, seed: int) -> Tuple[float, MatchSummary]:
         """The candidate (current parameters) against the best so far, both
         through the self-play forward: ``(decisive win rate, summary)``, the
-        rate wins / (wins + losses), 0.5 if every game is drawn. Separate
-        so that tests can rig the outcome."""
+        rate wins / (wins + losses), 0.5 if every game is drawn. Under a
+        process group each rank plays its share of the games and every rank
+        gets the whole summary. Separate so that tests can rig the
+        outcome."""
         def player(net):
             return MCTSPlayer(self.engine, net, num_simulations=self.gating_sims,
                               c_puct=self.c_puct)
 
-        s = Arena(self.engine, device=self.device).play_matches(
+        shard = (self.rank, self.process_count) if self.distributed else None
+        s = Arena(self.engine, device=self.device, shard=shard).play_matches(
             player(self._net(self.model)), player(self._best_net()), self.gating_games, seed,
             opening_random_plies=self.gating_opening)
         decisive = s.wins + s.losses
@@ -500,7 +625,8 @@ class AlphaZeroTrainer:
         last_failed_it = -1
         while it < num_iterations:
             try:
-                if self.max_recovery_retries > 0 and self._heal_ckpt is None:
+                if (self.max_recovery_retries > 0 and not self.distributed
+                        and self._heal_ckpt is None):
                     self._pre_iter_snapshot = (it, self._snapshot())
                 last = self._train_iteration(it, episodes, num_iterations,
                                              recent_iter_times, recent_losses)
@@ -508,6 +634,13 @@ class AlphaZeroTrainer:
             except (KeyboardInterrupt, SystemExit):
                 raise
             except Exception as e:  # noqa: BLE001 — a failed iteration
+                if self.distributed:
+                    # a local restore while the peers wait in a collective
+                    # would hang them: fail fast, restart with --resume latest
+                    self.log(f"iteration {it + 1} failed in a multi-process run "
+                             f"({type(e).__name__}: {e}); self-healing is single-process "
+                             "only — re-raising")
+                    raise
                 fail_streak = fail_streak + 1 if it == last_failed_it else 1
                 last_failed_it = it
                 if fail_streak > self.max_recovery_retries:

@@ -341,17 +341,32 @@ def test_cli_train_and_resume(trained):
 
 
 @pytest.mark.parametrize("how", ["--coordinator", "--num-processes", "--process-id", "env"])
-def test_cli_train_refuses_multi_process(how, tmp_path, monkeypatch):
+def test_cli_train_refuses_multi_process(how, tmp_path, monkeypatch, capsys):
+    """As the JAX CLI: a coordinator (flag or ``$OTHELLO_COORDINATOR``)
+    without the process count and id exits with its message before any
+    training; ``--num-processes`` or ``--process-id`` without a coordinator
+    is ignored, and the run trains in one process. A 2-process run through
+    the CLI is in ``test_torch_parallel.py``."""
     path = tmp_path / "tiny.yaml"
     _write_tiny(path, 1, tmp_path)
     argv = ["train", "--config", str(path)]
+    for name in ("OTHELLO_COORDINATOR", "OTHELLO_NUM_PROCESSES", "OTHELLO_PROCESS_ID",
+                 "WORLD_SIZE", "MASTER_ADDR"):
+        monkeypatch.delenv(name, raising=False)
     if how == "env":
         monkeypatch.setenv("OTHELLO_COORDINATOR", "localhost:1234")
     else:
         argv += [how, "localhost:1" if how == "--coordinator" else "2"]
-    with pytest.raises(SystemExit, match="data-parallel slice"):
-        cli.main(argv)
-    assert not (tmp_path / "models").exists()
+    if how in ("--coordinator", "env"):
+        with pytest.raises(SystemExit, match="--coordinator requires --num-processes and "
+                                             "--process-id"):
+            cli.main(argv)
+        assert not (tmp_path / "models").exists()
+        return
+    cli.main(argv)
+    out = capsys.readouterr().out
+    assert "iter 1/1" in out and "distributed:" not in out
+    assert (tmp_path / "models" / "final_model.pt").is_file()
 
 
 def test_cli_eval_saves_the_jax_keys(trained, tmp_path, monkeypatch, capsys):

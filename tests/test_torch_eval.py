@@ -45,6 +45,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = [(8, "reference"), (8, "standard"), (6, "reference"), (6, "standard")]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch's intra-op pool at one thread: the games here are long chains
+    of tiny ops, which many threads per worker turn into spin-waits when
+    the test workers share the cores (tens of times slower); one thread
+    runs them as fast as eight does alone."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def positions(size, rules, seed=0, n=256):
     """``n`` positions in both packages' layouts after 0 to S*S random legal
     plies from a numpy seed (some finished), stepped by the port's engine

@@ -31,6 +31,18 @@ GATING_FIELDS = ("gating_enabled", "gating_games", "gating_threshold", "gating_i
                  "gating_sims", "gating_opening")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch's intra-op pool at one thread: the games here are long chains
+    of tiny ops, which many threads per worker turn into spin-waits when
+    the test workers share the cores (tens of times slower); one thread
+    runs them as fast as eight does alone."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(autouse=True)
 def no_tensorboard(monkeypatch):
     """The JSONL metrics stream is the contract; TensorBoard would pull in

@@ -38,6 +38,18 @@ from torch_stub_net import jax_stub, stub_weights, to_i64, torch_stub
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch's intra-op pool at one thread: the games here are long chains
+    of tiny ops, which many threads per worker turn into spin-waits when
+    the test workers share the cores (tens of times slower); one thread
+    runs them as fast as eight does alone."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("size,rules", [(8, "reference"), (8, "standard"), (6, "reference")])
 def test_play_games_matches_jax_with_stub_net(size, rules):
     weights = stub_weights(size, seed=size)

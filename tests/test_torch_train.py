@@ -61,6 +61,18 @@ from torch_stub_net import to_i64
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch's intra-op pool at one thread: the games here are long chains
+    of tiny ops, which many threads per worker turn into spin-waits when
+    the test workers share the cores (tens of times slower); one thread
+    runs them as fast as eight does alone."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(autouse=True)
 def no_tensorboard(monkeypatch):
     """Both packages' MetricsWriter write TensorBoard files only when it
@@ -496,13 +508,21 @@ def test_self_play_in_chunks_of_num_parallel_games(tmp_path):
 
 
 @pytest.mark.parametrize("section,key,value,match", [
-    ("system", "mesh_devices", 2, "data-parallel slice"),
+    ("system", "mesh_devices", 2, "--coordinator/--num-processes/--process-id"),
+    ("system", "mesh_devices", 1, None),
 ])
 def test_unported_options_raise(tmp_path, section, key, value, match):
-    cfg = tiny_config(tmp_path, "u")
+    """``system.mesh_devices`` is the data-parallel world size, one process a
+    device: 2 in a single process raises, naming how to start the ranks
+    (``test_torch_parallel.py`` runs them); 1 is the single-process run."""
+    cfg = tiny_config(tmp_path, "u", num_iterations=1)
     cfg[section][key] = value
-    with pytest.raises(NotImplementedError, match=match):
+    if match is None:
+        assert trainer(cfg).train()["Loss/train"] > 0
+        return
+    with pytest.raises(ValueError, match=match) as e:
         trainer(cfg)
+    assert "torchrun" in str(e.value)
 
 
 def test_augmentation_off_under_reference_rules(tmp_path):

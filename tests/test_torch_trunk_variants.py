@@ -110,6 +110,18 @@ INT8_VARIANTS = {"int8_m9": ("m9", trunk_int8_m9, trunk_int8_m9_plain),
                  "int8_dxcat": ("dxcat", trunk_int8_dxcat, trunk_int8_dxcat_plain)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch's intra-op pool at one thread: the games here are long chains
+    of tiny ops, which many threads per worker turn into spin-waits when
+    the test workers share the cores (tens of times slower); one thread
+    runs them as fast as eight does alone."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def bf16_ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Distance in bf16 ulps of two non-negative bf16-valued f32 arrays."""
     return np.abs((a.view(np.int32) >> 16) - (b.view(np.int32) >> 16))

@@ -4,14 +4,14 @@ shared by the port's MCTS and self-play tests.
 The stub's logits and value are exact in float32 (0/1 features times
 multiples of 1/16, and d / (1 + |d|)), so a JAX search and a port search
 see the same numbers up to the exp/log/sum of the policy.
+
+JAX is imported inside the functions that need it, so that the port's
+multi-process test workers (``torch_mp_worker.py``) take the stub without it.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import torch
 
-from othello_reinforcement_learning_test_tpu.ops import bitboard as jbb
 from othello_reinforcement_learning_test_tpu_torch.ops.bitboard import Board
 
 
@@ -36,6 +36,9 @@ def stub_weights(size, seed=0):
 
 
 def jax_stub(var, x):
+    import jax
+    import jax.numpy as jnp
+
     f = x.reshape(x.shape[0], -1)
     d = f @ var["vw"] + var["vb"]
     return jax.nn.log_softmax(f @ var["W"] + var["b"], axis=-1), (d / (1 + jnp.abs(d)))[:, None]
@@ -55,6 +58,10 @@ def torch_stub(weights):
 
 def random_boards(size, rules, n, plies, seed):
     """Positions after random legal plies (JAX engine), as both layouts."""
+    import jax
+
+    from othello_reinforcement_learning_test_tpu.ops import bitboard as jbb
+
     eng = jbb.get_engine(size, rules)
     rng = np.random.default_rng(seed)
     s = eng.initial_state((n,))
