@@ -166,6 +166,35 @@ each as they finish:
                  statistics rtol 1e-4, atol 1e-6, as ``train_step_check``);
                  each rank's seconds of self-play, SGD, gate match and
                  checkpoint;
+   frontends     the web session, the stdlib REST server and the Tk app
+                 (``apps/``) on the card, writing only under the git-ignored
+                 ``_build/chip_smoke_frontends``; no kernel is on this path
+                 (the players run the plain bf16 forward, ``apply_eval``),
+                 and none may launch. (a) A ``GameManager`` on the card and
+                 one on the CPU, each with an ``MCTSPlayer`` on the stub
+                 network at 16 simulations, through one whole game (human
+                 moves drawn from numpy, every other ply an AI move, one
+                 undo, one hint): every ``state_dict()`` and the hint
+                 identical. (b) A 10x128 port checkpoint from a numpy seed,
+                 the stdlib server on a free port over a CUDA session, and
+                 the JS client's sequence over HTTP: ``/`` and its scripts,
+                 the model list (holding the checkpoint), load-model,
+                 simulations 100, a whole game (human moves, AI moves
+                 polled through ai-status every 0.05 s, passes included),
+                 a hint every 10 plies, one undo, one AI move at 500
+                 simulations; checks: every AI move legal, 1 + simulations
+                 forwards a move, the game over, the network and the board
+                 on the card, the final board equal to the CPU engine
+                 replaying the actions, hints legal and in 0-100; prints the
+                 AI move's seconds (first, median, max at 100 simulations;
+                 at 500), the hint's, the median ``GET /api/game/state``
+                 ms, the CUDA MiB allocated at the game's start and at its
+                 peak; then a 25-simulation search at B=1 under
+                 torch.profiler (wall, device busy, idle share, launches a
+                 simulation) and the network's forward at B=1. (c) The port's ``OthelloApp`` on the card under
+                 ``tests/fake_tk.py`` with the checkpoint: a click, the
+                 AI's reply through its thread and ``root.after``, a hint;
+                 the draw operations and button states checked;
 9. bench         the port's ``bench.py --mode all --repeats 1`` in process,
                  its JSON line printed (random self-play through
                  ``random_step``, one launch a ply; self-play through
@@ -207,6 +236,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -215,6 +245,8 @@ import numpy as np
 import torch
 
 from othello_reinforcement_learning_test_tpu_torch import bench, benchmark, benchmark_model, cli
+from othello_reinforcement_learning_test_tpu_torch.apps.web.game_manager import GameManager
+from othello_reinforcement_learning_test_tpu_torch.apps.web.server import make_server
 from othello_reinforcement_learning_test_tpu_torch.kernels import build
 from othello_reinforcement_learning_test_tpu_torch.kernels import random_step as rs
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8 import (
@@ -276,6 +308,7 @@ from othello_reinforcement_learning_test_tpu_torch.models.torch_bridge import in
 from othello_reinforcement_learning_test_tpu_torch.ops import fused_step
 from othello_reinforcement_learning_test_tpu_torch.ops.bitboard import get_engine
 from othello_reinforcement_learning_test_tpu_torch.search import mcts
+from othello_reinforcement_learning_test_tpu_torch.train import checkpoint as ckpt_lib
 from othello_reinforcement_learning_test_tpu_torch.train import trainer as trainer_lib
 from othello_reinforcement_learning_test_tpu_torch.train.self_play import play_games
 from othello_reinforcement_learning_test_tpu_torch.utils.config import load_config, to_yaml
@@ -399,6 +432,15 @@ DIST_CUT = {"training": {"self_play_episodes_per_iter": 128 * DIST_RANKS,
             "system": {"max_recovery_retries": 0, "mesh_devices": DIST_RANKS}}
 DIST_STEP_BATCH = 1024
 DIST_TIMEOUT_S = 600
+# the frontends phase: the stub session card vs CPU at 16 simulations; the
+# web app's game at the session's default 100 simulations and one move at
+# its 500 ceiling (the first AI ply from ply 21); a hint (at half the
+# simulations) every 10 plies; one undo at ply 12
+FRONT_SCRATCH = build.BUILD_DIR / "chip_smoke_frontends"  # git-ignored
+FRONT_STUB_SIMS = 16
+FRONT_SIMS, FRONT_MAX_SIMS = 100, 500
+FRONT_HINT_EVERY, FRONT_UNDO_AT, FRONT_MAX_AT = 10, 12, 21
+STATIC_FILES = ("/", "/css/style.css", "/js/api.js", "/js/board.js", "/js/ui.js", "/js/main.js")
 
 
 def launches_per_forward(kernel) -> int:
@@ -1564,6 +1606,281 @@ def distributed_phase(engine, dev) -> None:
     shutil.rmtree(DIST_SCRATCH, ignore_errors=True)
 
 
+def session_parity(engine, dev) -> dict:
+    """Part (a) of phase ``frontends``: one stub-network session on the card
+    and one on the CPU through a whole game, every state and the hint
+    identical."""
+    weights = stub_weights(engine.size)
+    sessions = []
+    for d in (dev, torch.device("cpu")):
+        gm = GameManager(engine=engine, model_dir=str(FRONT_SCRATCH), device=d)
+        gm._player = MCTSPlayer(engine, stub_net(weights, d), num_simulations=FRONT_STUB_SIMS)
+        gm.set_simulations(FRONT_STUB_SIMS)
+        sessions.append(gm)
+    card, host = sessions
+    check(card.board.me.device.type == "cuda", "the card session's board is on the card")
+    rng = np.random.default_rng(SEED + 3)
+    plies, hint, undone = 0, None, False
+    t0 = time.perf_counter()
+    while True:
+        state = card.state_dict()
+        check(state == host.state_dict(), f"session state on the card == CPU at ply {plies}")
+        if state["is_game_over"]:
+            break
+        if plies == FRONT_UNDO_AT and not undone:
+            check(card.undo() == host.undo() == (True, None), "undo on both")
+            undone = True
+            continue
+        if plies == FRONT_HINT_EVERY:
+            hint = card.hint()
+            check(hint == host.hint() and bool(hint), "the hint on the card == CPU")
+        if state["current_player"] == 1:
+            move = int(rng.choice(state["legal_moves"]))
+            check(card.make_move(move) == host.make_move(move) == (True, None), "human move")
+        else:
+            check(card.execute_ai_move() == host.execute_ai_move() == (True, None), "AI move")
+        plies += 1
+    return {"plies": plies, "winner": state["winner"], "hint": hint,
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def http_json(base: str, path: str, method: str = "GET", body=None):
+    """One request as the JS client's ``_fetch`` makes it: (status, JSON)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, method=method,
+                                 data=None if body is None else json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def web_game(engine, dev, model_path: str) -> dict:
+    """Part (b) of phase ``frontends``: the stdlib server over a CUDA
+    session, driven over HTTP as the JS client drives it."""
+    import urllib.request
+
+    gm = GameManager(model_dir=str(FRONT_SCRATCH / "models"), device=dev)
+    port = free_port()
+    server, _ = make_server("127.0.0.1", port, gm=gm)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{port}"
+    try:
+        for path in STATIC_FILES:
+            with urllib.request.urlopen(base + path, timeout=60) as resp:
+                check(resp.status == 200 and len(resp.read()) > 0, f"GET {path}")
+        status, models = http_json(base, "/api/ai/models")
+        check(status == 200 and models["models"] == [model_path], f"the model list: {models}")
+        check(http_json(base, "/api/ai/load-model", "POST", {"path": model_path})
+              == (200, {"success": True, "error": None}), "load-model")
+        player = gm._player
+        forwards = [0]
+        net = player.net
+
+        def counted(x):
+            forwards[0] += 1
+            return net(x)
+
+        player.net = counted
+        check(all(p.device.type == "cuda" for p in player.model.parameters()),
+              "the network's parameters on the card")
+        check(http_json(base, "/api/ai/simulations", "PUT", {"num_simulations": FRONT_SIMS})
+              == (200, {"num_simulations": FRONT_SIMS}), "simulations 100")
+        check(http_json(base, "/api/game/new", "POST")[0] == 200, "new game")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start_mib = torch.cuda.memory_allocated() / 2**20  # the script's tensors and the model
+        rng = np.random.default_rng(SEED + 4)
+        actions, ai_s, max_s, hint_s, state_ms = [], [], [], [], []
+        plies = passes = 0
+        undone = False
+        while True:
+            t0 = time.perf_counter()
+            status, state = http_json(base, "/api/game/state")
+            state_ms.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200, "GET state")
+            if state["is_game_over"]:
+                break
+            legal = state["legal_moves"]
+            passes += legal == [engine.pass_action]
+            if plies and plies % FRONT_HINT_EVERY == 0 and len(hint_s) < plies // FRONT_HINT_EVERY:
+                t0 = time.perf_counter()
+                status, hint = http_json(base, "/api/game/hint")
+                hint_s.append(time.perf_counter() - t0)
+                evals = {int(k): v for k, v in hint["evaluations"].items()}
+                check(status == 200 and hint["num_simulations"] == max(10, gm.ai_simulations // 2)
+                      and set(evals) <= set(legal) and all(0 <= v <= 100 for v in evals.values()),
+                      f"hint at ply {plies}: {hint}")
+            if plies == FRONT_UNDO_AT and not undone:
+                status, res = http_json(base, "/api/game/undo", "POST")
+                check(status == 200 and res["success"], "undo")
+                actions.pop()
+                undone = True
+                continue
+            if state["current_player"] == 1:
+                move = int(rng.choice(legal))
+                status, res = http_json(base, "/api/game/move", "POST", {"position": move})
+                check(status == 200 and res["success"], f"human move {move}")
+                actions.append(move)
+            else:
+                sims = FRONT_MAX_SIMS if plies >= FRONT_MAX_AT and not max_s else FRONT_SIMS
+                if sims != gm.ai_simulations:
+                    http_json(base, "/api/ai/simulations", "PUT", {"num_simulations": sims})
+                before = forwards[0]
+                t0 = time.perf_counter()
+                check(http_json(base, "/api/game/ai-move", "POST")
+                      == (200, {"success": True, "error": None}), "ai-move")
+                while True:
+                    time.sleep(0.05)
+                    status, st = http_json(base, "/api/game/ai-status")
+                    if not st["is_thinking"]:
+                        break
+                (max_s if sims == FRONT_MAX_SIMS else ai_s).append(time.perf_counter() - t0)
+                check(st["error"] is None and st["last_ai_move"] in legal,
+                      f"AI move {st['last_ai_move']} legal ({legal})")
+                check(forwards[0] - before == 1 + sims,
+                      f"forwards of an AI move {forwards[0] - before} == 1 + {sims}")
+                actions.append(st["last_ai_move"])
+                if sims != FRONT_SIMS:
+                    http_json(base, "/api/ai/simulations", "PUT", {"num_simulations": FRONT_SIMS})
+            plies += 1
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        # where an AI move's time goes: a search at B=1 on a position 20
+        # plies in, profiled (SIMS simulations: the per-simulation figures
+        # of a move, at a quarter of its profiler events), and the
+        # network's forward alone at B=1
+        board = random_positions(engine, 1, 20, np.random.default_rng(SEED + 5), dev)
+        feats = engine.features(board)
+        search = {"simulations": SIMS, **profile_search(engine, net, board)}
+        forward_ms = time_ms(lambda: net(feats), reps=50)
+        check(all(t.device.type == "cuda" for t in gm.board), "the session's board on the card")
+        replay = engine.initial_state((1,))
+        for a in actions:
+            replay, ok = engine.step(replay, torch.tensor([a]))
+            check(bool(ok[0]), f"replayed action {a} valid on the CPU engine")
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(gm.board, replay)),
+              "the final board == the CPU engine replaying the actions")
+        check(bool(engine.is_terminal(replay)[0]) and state["winner"] in (-1, 0, 1), "game over")
+        check(len(max_s) == 1 and len(hint_s) >= 5 and undone, "a 500-simulation move, hints, undo")
+        return {"plies": plies, "passes": passes, "ai_moves": len(ai_s) + 1,
+                "black": state["black_count"], "white": state["white_count"],
+                "winner": state["winner"],
+                "ai_move_s_100": {"first": round(ai_s[0], 4), "median": round(float(np.median(ai_s)), 4),
+                                  "max": round(max(ai_s), 4)},
+                "ai_move_s_500": round(max_s[0], 4),
+                "hint_s_50": {"median": round(float(np.median(hint_s)), 4),
+                              "max": round(max(hint_s), 4), "count": len(hint_s)},
+                "state_ms_median": round(float(np.median(state_ms)), 3),
+                "forwards_per_ai_move": 1 + FRONT_SIMS, "forwards": forwards[0],
+                "cuda_mib_at_start": round(start_mib, 1), "peak_cuda_mib": round(peak_mib, 1),
+                "search_b1": search, "forward_ms_b1": forward_ms}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+
+
+def gui_check(dev, model_path: str) -> dict:
+    """Part (c) of phase ``frontends``: the port's Tk app on the card under
+    the repository's headless toolkit (``tests/fake_tk.py``)."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import fake_tk
+
+    saved = {k: sys.modules.get(k) for k in ("tkinter", "tkinter.filedialog", "tkinter.messagebox")}
+    sys.modules.update({"tkinter": fake_tk, "tkinter.filedialog": fake_tk.filedialog,
+                        "tkinter.messagebox": fake_tk.messagebox})
+    gui_modules = [k for k in sys.modules if ".apps.gui" in k]
+    for k in gui_modules:
+        del sys.modules[k]
+    try:
+        from othello_reinforcement_learning_test_tpu_torch.apps.gui.app import OthelloApp
+
+        root = fake_tk.Tk()
+        app = OthelloApp(root, model_path=model_path, model_dir=str(FRONT_SCRATCH / "models"),
+                         device=dev)
+        gm = app.gm
+        check(gm.state_dict()["model_path"] == model_path
+              and next(gm._player.model.parameters()).device.type == "cuda"
+              and gm.board.me.device.type == "cuda", "the GUI's session and network on the card")
+
+        def joined(action) -> float:
+            before = set(threading.enumerate())
+            t0 = time.perf_counter()
+            action()
+            for t in set(threading.enumerate()) - before:
+                t.join(timeout=120)
+                check(not t.is_alive(), "the GUI's worker thread ended")
+            return time.perf_counter() - t0
+
+        def kinds():
+            return [k for k, _, _ in app.board_ui.canvas.items]
+
+        cell = app.board_ui.cell
+        click_s = joined(lambda: app.board_ui.canvas.event_generate(
+            "<Button-1>", x=3 * cell + 5, y=2 * cell + 5))  # D3, then the AI's reply
+        state = gm.state_dict()
+        check(state["move_count"] == 2 and state["last_ai_move"] is not None
+              and not state["is_ai_thinking"], f"a click and the AI's reply: {state['move_count']}")
+        stones = state["black_count"] + state["white_count"]
+        ovals = [kw for k, _, kw in app.board_ui.canvas.items if k == "oval"]
+        dots = sum(m < 64 for m in state["legal_moves"])
+        check(kinds().count("line") == 18 and len(ovals) == stones + dots + 1
+              and sum(kw.get("width") == 3 for kw in ovals) == 1,
+              "the board drawn: grid, stones, legal dots, the last-move marker")
+        buttons = {b: getattr(app, b).cget("state")
+                   for b in ("btn_undo", "btn_ai", "btn_hint", "btn_pass")}
+        check(buttons == {"btn_undo": "normal", "btn_ai": "normal", "btn_hint": "normal",
+                          "btn_pass": "disabled"}, f"button states {buttons}")
+        hint_s = joined(app.btn_hint.invoke)
+        texts = [kw["text"] for k, _, kw in app.board_ui.canvas.items if k == "text"]
+        check(bool(app._evals) and set(app._evals) <= set(state["legal_moves"])
+              and len(texts) == len(app._evals)
+              and app.info.message_var.get() == f"hint ({len(app._evals)} moves)",
+              f"the hint overlay: {app._evals}")
+        root.destroy()
+        return {"click_and_reply_s": round(click_s, 4), "hint_s": round(hint_s, 4),
+                "draw_ops": len(kinds()), "hint_moves": len(texts)}
+    finally:
+        for k in [k for k in sys.modules if ".apps.gui" in k]:
+            del sys.modules[k]
+        for k, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = mod
+        sys.path.remove(str(REPO / "tests"))
+
+
+def frontends_phase(engine, dev) -> None:
+    """The web session, the stdlib server and the Tk app on the card (see
+    the module docstring)."""
+    t0 = time.perf_counter()
+    shutil.rmtree(FRONT_SCRATCH, ignore_errors=True)
+    (FRONT_SCRATCH / "models").mkdir(parents=True)
+    kernels = set(VARIANT_KERNEL.values()) | {rs.random_step}
+    for kernel in kernels:
+        kernel.launches = 0
+    parity = session_parity(engine, dev)
+    model = OthelloResNet(NUM_BLOCKS, NUM_FILTERS)
+    model.load_state_dict(from_jax_variables(init_numpy_variables(NUM_BLOCKS, NUM_FILTERS, SEED)))
+    cfg = {"game": {"size": 8, "rules": "reference"},
+           "model": {"num_blocks": NUM_BLOCKS, "num_filters": NUM_FILTERS}}
+    model_path = ckpt_lib.save(str(FRONT_SCRATCH / "models" / "he_normal_10x128.pt"),
+                               {"model": model.state_dict(), "step": 0, "iteration": 0}, cfg)
+    web = web_game(engine, dev, model_path)
+    gui = gui_check(dev, model_path)
+    launched = {k.__name__: k.launches for k in kernels if k.launches}
+    phase("frontends", session_card_vs_cpu=parity, web=web, gui=gui,
+          kernel_launches=launched, total_s=round(time.perf_counter() - t0, 3))
+    check(not launched, f"no kernel on the frontends' path ({launched})")
+    shutil.rmtree(FRONT_SCRATCH, ignore_errors=True)
+
+
 def bench_phase() -> tuple:
     """The port's bench in process: ``--mode all --repeats 1`` (random_step
     launched once a ply), then ``--mode mcts --net-variant int8``
@@ -1815,6 +2132,7 @@ def main() -> int:
     dxcat_launches = gating_phase()
     cli_phase(engine, dev)
     distributed_phase(engine, dev)
+    frontends_phase(engine, dev)
     step_launches, int8_launches = bench_phase()
     variant_launches = benchmark_model_phase()
 

@@ -23,7 +23,7 @@ Differences from the JAX CLI:
   ``--process-id`` without a coordinator are ignored;
 - checkpoints are the port's ``.pt`` files (``train/checkpoint.py``) or
   reference-format ``.pt`` files; the JAX package's orbax directories need
-  JAX and are not read;
+  JAX and are not read (``scripts/orbax_to_torch.py`` converts one);
 - ``export --format stablehlo`` writes the port's serving program, a
   ``torch.export`` program (``models/export.py``), in place of StableHLO.
   ``export`` runs on the CPU, as the JAX command does: it is weight

@@ -14,8 +14,8 @@ A checkpoint is a file ``<name>.pt`` with two JSON sidecars beside it:
   it reproduces an uninterrupted run bit for bit.
 
 The JAX package's checkpoints are orbax directories; reading them needs
-JAX, so this module cannot load them (``ROADMAP.md`` lists the conversion
-as open). Files are loaded with ``weights_only=True``: tensors, numbers,
+JAX, so this module cannot load them: ``scripts/orbax_to_torch.py``, which
+imports both packages, converts one into a format-1 file. Files are loaded with ``weights_only=True``: tensors, numbers,
 strings, lists and dicts only.
 """
 

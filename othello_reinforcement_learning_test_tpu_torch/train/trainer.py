@@ -73,12 +73,10 @@ import copy
 import dataclasses
 import os
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..evaluation.arena import Arena, MatchSummary
-from ..evaluation.players import MCTSPlayer
 from ..models.convert import from_jax_variables, init_train_variables, to_jax_variables
 from ..models.fused_resnet import PORTED_VARIANTS, FusedInference
 from ..models.resnet import OthelloResNet, param_count
@@ -89,6 +87,9 @@ from ..utils.metrics import MetricsWriter
 from . import buffer as buffer_lib
 from . import checkpoint as ckpt_lib
 from .self_play import Trajectory, auto_cond_interval, play_games
+
+if TYPE_CHECKING:
+    from ..evaluation.arena import MatchSummary
 
 
 @dataclasses.dataclass
@@ -581,6 +582,11 @@ class AlphaZeroTrainer:
         process group each rank plays its share of the games and every rank
         gets the whole summary. Separate so that tests can rig the
         outcome."""
+        # imported here: the evaluation package imports train.self_play, so
+        # a module-level import would make the two packages' imports a cycle
+        from ..evaluation.arena import Arena
+        from ..evaluation.players import MCTSPlayer
+
         def player(net):
             return MCTSPlayer(self.engine, net, num_simulations=self.gating_sims,
                               c_puct=self.c_puct)
