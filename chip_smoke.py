@@ -11,7 +11,11 @@ each as they finish:
                  ``trunk_int8``, ``random_step``, ``trunk_wide``,
                  ``trunk_int8_m9``, ``trunk_int8_patch``,
                  ``trunk_int8_flat``, ``trunk_int8_dxcat``) built from
-                 ``csrc/`` with nvcc, in parallel; ptxas registers and
+                 ``csrc/`` with nvcc, the trunks at 8x8 boards and 128
+                 channels, and beside them the 14 libraries of phase
+                 ``shapes`` (each trunk source is a template on the board
+                 side and width, one library a shape), all in parallel;
+                 each with its seconds; ptxas registers and
                  shared memory; for ``trunk_matmul9`` and ``trunk_wide``
                  their HGMMA (bf16 wgmma) count from ``cuobjdump -sass``,
                  for ``trunk_int8_dx3``, ``trunk_int8``, ``trunk_int8_m9``,
@@ -206,6 +210,35 @@ each as they finish:
                  2 repeats): each table printed, every row at B >= 256 a
                  number, each kernel launched 20 times a fused forward
                  (``trunk_int8_dxcat`` once);
+    shapes       the trunks at the board sides and widths of the shipped
+                 configs besides 10x128 at 8x8, weights from a numpy seed
+                 (the trainer's initial ones for the bf16 trunks), on stem
+                 outputs of real positions: all eight at 6x6 with 64
+                 channels (``configs/debug_6x6.yaml``'s 5x64 network;
+                 ``trunk_int8`` with both ``stage_bf16`` settings),
+                 ``matmul9``, ``int8_dx3`` and ``int8_dxcat`` also at 8x8
+                 with 32 (``parity_4x32.yaml``'s 4x32) and 4x4 with 16
+                 (2x16), at B=64, 24 and 1, each to its 8x8 bar: the int8
+                 trunks bit for bit and their forward equal to the plain
+                 trunk's; the bf16 ones equal to their convs launched one
+                 by one, each conv within the bf16 default plus
+                 ``sum_error_bound`` (``wide``: plus a bf16 ulp a tap), the
+                 forward within probs 0.03 / value 0.05; launches L a
+                 forward (``int8_dxcat``: 1). Then ``cli train`` on
+                 ``configs/debug_6x6.yaml`` read with the port's YAML reader
+                 and cut (``int8_dx3``, 5x64, one iteration of 64 games in
+                 one batch at its 10 simulations, 2 SGD steps, a checkpoint),
+                 the checkpoint reloaded and its network through the kernel
+                 equal to the plain trunk: ``trunk_int8_dx3`` launched 10 x
+                 forwards, no other trunk; the same gated through
+                 ``int8_dxcat`` with an 8-game gate match (1 launch a
+                 forward); self-play and SGD seconds of each, the gate
+                 match's. Then the port's ``bench --mode mcts --size 6
+                 --filters 64 --blocks 5 --net-variant int8_dx3 --batch 256
+                 --repeats 1``, its JSON line (launches 10 x forwards); and
+                 each variant's ms a forward at B=1024, 6x6, 64 channels
+                 (wall by CUDA events, device by torch.profiler), beside
+                 its bounds (the work of 36 positions a game);
 10. profile      one ply's search at B=1024 under torch.profiler: wall
                  time, device-busy time and idle share, time by kernel;
 11. timing       the eight trunk kernels and their plain versions at B=1024
@@ -222,7 +255,9 @@ each as they finish:
                  ply of 4,194,304 games (CUDA events; their outputs must be
                  bit-equal); the bounds, launches per forward.
 
-Then one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and the
+Then one ``{"kernels": [...]}`` JSON line (each kernel with the shapes it
+was checked at: [board side, channels], ``random_step`` its board sides),
+the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero; without CUDA it exits non-zero before any phase.
 """
@@ -233,6 +268,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -441,12 +477,43 @@ FRONT_STUB_SIMS = 16
 FRONT_SIMS, FRONT_MAX_SIMS = 100, 500
 FRONT_HINT_EVERY, FRONT_UNDO_AT, FRONT_MAX_AT = 10, 12, 21
 STATIC_FILES = ("/", "/css/style.css", "/js/api.js", "/js/board.js", "/js/ui.js", "/js/main.js")
+# phase shapes: the trunks at the board sides and widths the shipped configs
+# use besides 10x128 at 8x8, each network's depth its config's: (S, C) ->
+# (blocks, the trunks checked there). configs/debug_6x6.yaml's 5x64 at 6x6
+# takes all eight (int8 with both stage_bf16 settings); parity_4x32.yaml's
+# 4x32 at 8x8 and a 2x16 network at 4x4 (test.yaml's width) the three
+# bodies' trunks
+SHAPE_VARIANTS = ("matmul9", "wide", "int8", "int8_bf16", "int8_m9", "int8_patch",
+                  "int8_flat", "int8_dx3", "int8_dxcat")
+SHAPE_NETS = {(6, 64): (5, SHAPE_VARIANTS), (8, 32): (4, ("matmul9", "int8_dx3", "int8_dxcat")),
+              (4, 16): (2, ("matmul9", "int8_dx3", "int8_dxcat"))}
+SHAPE_BATCHES = (64, 24, 1)
+# each kernel's library at every shape phase shapes runs, built in the build
+# phase beside the 8x8/128 ones
+SHAPE_BUILDS = sorted({(VARIANT_KERNEL[v].__name__, shape)
+                       for shape, (_, variants) in SHAPE_NETS.items() for v in variants})
+SHAPES_SCRATCH = build.BUILD_DIR / "chip_smoke_shapes"  # git-ignored
+# configs/debug_6x6.yaml (6x6, 5x64) through int8_dx3, cut to one iteration
+# of 64 games in one batch at its own 10 simulations, 2 SGD steps at its
+# batch of 128, a checkpoint; then gated through int8_dxcat with an 8-game
+# gate match (at its 25 evaluation simulations)
+DEBUG_6X6_CUT = {"training": {"self_play_episodes_per_iter": 64, "num_iterations": 1,
+                              "train_epochs_per_iter": 2, "checkpoint_interval": 1},
+                 "self_play": {"num_parallel_games": 64},
+                 "paths": {"checkpoint_dir": str(SHAPES_SCRATCH / "models"),
+                           "log_dir": str(SHAPES_SCRATCH / "logs"),
+                           "data_dir": str(SHAPES_SCRATCH)},
+                 "system": {"self_play_net_variant": "int8_dx3", "max_recovery_retries": 0}}
+DEBUG_6X6_GATE = {"enabled": True, "games": 8, "interval": 1, "win_threshold": 0.55,
+                  "num_simulations": None, "opening_random_plies": 4}  # None: the eval count
+SHAPES_BENCH = ["--mode", "mcts", "--size", "6", "--filters", "64", "--blocks", "5",
+                "--net-variant", "int8_dx3", "--batch", "256", "--repeats", "1"]
 
 
-def launches_per_forward(kernel) -> int:
-    """A trunk kernel's launches a forward: one a conv, but int8_dxcat's
-    whole trunk in one."""
-    return DXCAT_LAUNCHES_PER_FORWARD if kernel is trunk_int8_dxcat else 2 * NUM_BLOCKS
+def launches_per_forward(kernel, layers: int = 2 * NUM_BLOCKS) -> int:
+    """A trunk kernel's launches a forward of ``layers`` convs: one a conv,
+    but int8_dxcat's whole trunk in one."""
+    return DXCAT_LAUNCHES_PER_FORWARD if kernel is trunk_int8_dxcat else layers
 
 
 def phase(phase_name: str, **fields) -> None:
@@ -558,12 +625,14 @@ def wgmma_evidence(builds: dict) -> None:
         phase("build", kernel=kname, **{f"{op.lower()}_instructions": count})
 
 
-def trunk_bound_ms(batch: int, layers: int, channels: int, bf16: bool = False) -> tuple:
+def trunk_bound_ms(batch: int, layers: int, channels: int, bf16: bool = False,
+                   size: int = 8) -> tuple:
     """Least time for one trunk forward on this card: operations over the
     tensor-core rate of their type, bytes (bf16 in and out; int8 weights
     with f32 scales and biases, or bf16 weights with f32 biases; each moved
-    once) over the memory rate."""
-    rows = batch * 64
+    once) over the memory rate. The work of the batch's size x size boards
+    (at 6x6 the kernels compute 64 rows a game and keep 36)."""
+    rows = batch * size * size
     ops = layers * rows * channels * channels * 9 * 2
     if bf16:
         w_bytes, rate = layers * (9 * channels * channels * 2 + channels * 4), BF16_OPS_PER_S
@@ -574,7 +643,7 @@ def trunk_bound_ms(batch: int, layers: int, channels: int, bf16: bool = False) -
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def int8_bytes_floor_ms(batch: int, layers: int, channels: int) -> float:
+def int8_bytes_floor_ms(batch: int, layers: int, channels: int, size: int = 8) -> float:
     """Least time for one forward of the int8 trunks as they are built: the
     per-block activation scale spans games that no CTA holds whole, so each
     conv is its own launch and the activations cross device memory in f32.
@@ -582,7 +651,7 @@ def int8_bytes_floor_ms(batch: int, layers: int, channels: int) -> float:
     block's conv 0 reads x and writes y, its conv 1 reads y and x and writes
     x (bf16 on the last layer); the int8 weights with f32 scales and biases;
     each moved once, over the memory rate."""
-    act = batch * 64 * channels * 4  # one f32 activation tensor
+    act = batch * size * size * channels * 4  # one f32 activation tensor
     nbytes = (act // 2 + act) + layers // 2 * 5 * act - act // 2 \
         + layers * (9 * channels * channels + 2 * channels * 4)
     return nbytes / BYTES_PER_S * 1e3
@@ -1881,6 +1950,279 @@ def frontends_phase(engine, dev) -> None:
     shutil.rmtree(FRONT_SCRATCH, ignore_errors=True)
 
 
+def shape_model(size: int, channels: int, blocks: int, init, dev) -> OthelloResNet:
+    """A blocks x channels network for size x size boards, weights from a
+    numpy seed through ``init``, eval mode on ``dev``."""
+    m = OthelloResNet(blocks, channels, size)
+    m.load_state_dict(from_jax_variables(init(blocks, channels, SEED + size + channels, size)))
+    return m.to(dev).eval()
+
+
+def int8_plain(variant: str):
+    """The plain version of an int8 variant's kernel."""
+    if variant in ("int8", "int8_bf16"):
+        return trunk_int8_plain
+    return trunk_int8_dx3_plain if variant == "int8_dx3" else INT8_VARIANTS[variant][1]
+
+
+def check_shape_kernels(dev) -> tuple:
+    """Every trunk of SHAPE_NETS at its board side and width against its
+    plain version, at SHAPE_BATCHES, on stem outputs of real positions: the
+    int8 ones bit for bit, the forward equal to the plain trunk's; the bf16
+    ones equal to their convs launched one by one, each conv within the bar
+    of their 8x8 checks, the forward (trainer's initial weights) within
+    probs 0.03 / value 0.05. Launches L a forward (int8_dxcat: 1). Returns
+    ({kernel name: (shapes, largest difference)}, the (6, 64) networks)."""
+    checked, nets = {}, {}
+    for (S, C), (blocks, variants) in SHAPE_NETS.items():
+        eng = get_engine(S, "reference")
+        feats = eng.features(random_positions(eng, max(SHAPE_BATCHES), S * S // 3,
+                                              np.random.default_rng(SEED + S), dev))
+        layers = 2 * blocks
+        models = {"he_normal": shape_model(S, C, blocks, init_numpy_variables, dev),
+                  "flax_init": shape_model(S, C, blocks, init_train_variables, dev)}
+        nets[S, C] = models
+        for variant in variants:
+            kernel = VARIANT_KERNEL[variant]
+            bf16 = variant in ("matmul9", "wide")
+            fused = FusedInference(models["flax_init" if bf16 else "he_normal"], variant=variant)
+            before = kernel.launches
+            if bf16:
+                w, b = fused.trunk_w, fused.trunk_bias
+                args = ((conv_matmul9, conv_plain, matmul9_bound, trunk_matmul9_plain)
+                        if variant == "matmul9" else
+                        (conv_wide, conv_wide_plain, conv_bound, trunk_wide_plain))
+                kernel(fused.stem(feats[:1]), w, b)
+                launched = kernel.launches - before
+                check(launched == layers,
+                      f"{variant} launched {launched} times a forward at {S}x{S}x{C}")
+                err = check_bf16_convs(kernel.__name__, kernel, args[3], *args[:3], fused, feats,
+                                       f"flax_init, {S}x{S}, {blocks}x{C}", SHAPE_BATCHES)
+                lp_k, v_k = fused(feats)
+                lp_p, v_p = fused.heads(args[3](fused.stem(feats), w, b))
+                dp = float((lp_k.exp() - lp_p.exp()).abs().max())
+                dv = float((v_k - v_p).abs().max())
+                check(dp <= 0.03 and dv <= 0.05,
+                      f"FusedInference({variant}) at {S}x{S}x{C} within probs 0.03, value 0.05")
+            else:
+                kw = {"stage_bf16": True} if variant == "int8_bf16" else {}
+                plain = int8_plain(variant)
+                args = (fused.trunk_w, fused.trunk_scale, fused.trunk_bias, fused.block_games)
+                err = 0.0
+                for batch in SHAPE_BATCHES:
+                    h = fused.stem(feats[:batch])
+                    before = kernel.launches
+                    out_k = kernel(h, *args, **kw)
+                    launched = kernel.launches - before
+                    out_p = plain(h, *args, **kw)
+                    torch.cuda.synchronize()
+                    diff = (out_k.float() - out_p.float()).abs()
+                    n_diff = int((diff != 0).sum())
+                    err = max(err, float(diff.max()))
+                    check(bool(torch.isfinite(out_k.float()).all()), f"finite {variant} output")
+                    phase("kernel_check", kernel=kernel.__name__, variant=variant, size=S,
+                          channels=C, blocks=blocks, batch=batch, differing=n_diff,
+                          of=out_k.numel(), max_abs_diff=float(diff.max()), launches=launched)
+                    check(n_diff == 0, f"{variant} == plain version at {S}x{S}x{C}, B={batch}")
+                    check(launched == launches_per_forward(kernel, layers),
+                          f"{variant} launched {launched} times a forward at {S}x{S}x{C}")
+                lp_k, v_k = fused(feats)
+                lp_p, v_p = fused.heads(plain(fused.stem(feats), *args, **kw))
+                dp = float((lp_k.exp() - lp_p.exp()).abs().max())
+                dv = float((v_k - v_p).abs().max())
+                check(torch.equal(lp_k, lp_p) and torch.equal(v_k, v_p),
+                      f"FusedInference({variant}) at {S}x{S}x{C} == plain trunk")
+            check(lp_k.shape == (feats.shape[0], S * S + 1), f"{variant} policy shape at {S}x{S}")
+            phase("kernel_check", what=f"FusedInference({variant}) kernel vs plain trunk",
+                  size=S, channels=C, blocks=blocks, batch=feats.shape[0],
+                  max_abs_diff_probs=dp, max_abs_diff_value=dv)
+            shapes, worst = checked.get(kernel.__name__, ([], 0.0))
+            if [S, C] not in shapes:
+                shapes.append([S, C])
+            checked[kernel.__name__] = (shapes, max(worst, err))
+    return checked, nets
+
+
+def metrics_rows(log_dir: Path) -> dict:
+    """{tag: value} of the last row of each tag in ``log_dir/metrics.jsonl``."""
+    with open(log_dir / "metrics.jsonl") as f:
+        return {r["tag"]: r["value"] for r in map(json.loads, f)}
+
+
+def cli_train_at(cut: dict, name: str, kernel, dev) -> dict:
+    """``cli train --config`` on ``cut`` (written under SHAPES_SCRATCH as
+    ``name``.yaml and read back), counting the network's forwards and timing
+    the gate match; then the final checkpoint reloaded into a fresh trainer,
+    its network through ``kernel`` on the card equal to the plain trunk.
+    Checks: ``kernel`` launched launches_per_forward x forwards, no other
+    trunk, no self-heal line, the checkpoints written. Returns the phase's
+    fields."""
+    cut = json.loads(json.dumps(cut))
+    root = Path(cut["paths"]["data_dir"])
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    path = root / f"{name}.yaml"
+    path.write_text(to_yaml(cut))
+    check(load_config(str(path)) == cut, f"{name}: the cut copy reads back equal")
+    forwards, gate = [0], []
+    trainer = trainer_lib.AlphaZeroTrainer
+    make_net, gate_match = trainer._net, trainer._gate_match
+
+    def counted_net(self, model):
+        net = make_net(self, model)
+
+        def f(x):
+            forwards[0] += 1
+            return net(x)
+        return f
+
+    def timed_gate_match(self, seed):
+        t, before = time.perf_counter(), forwards[0]
+        out = gate_match(self, seed)
+        torch.cuda.synchronize()
+        gate.append((time.perf_counter() - t, forwards[0] - before))
+        return out
+
+    for k in set(VARIANT_KERNEL.values()):
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer_lib.AlphaZeroTrainer._net = counted_net
+    trainer_lib.AlphaZeroTrainer._gate_match = timed_gate_match
+    try:
+        _, log = captured(cli.main, ["train", "--config", str(path)])
+    finally:
+        trainer_lib.AlphaZeroTrainer._net = make_net
+        trainer_lib.AlphaZeroTrainer._gate_match = gate_match
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, fwd = kernel.launches, forwards[0]
+    others = {k.__name__: k.launches for k in VARIANT_KERNEL.values() if k is not kernel}
+    layers = 2 * cut["model"]["num_blocks"]
+    per = launches_per_forward(kernel, layers)
+    check(launches > 0 and launches == per * fwd,
+          f"{name}: {kernel.__name__} launches {launches} == {per} x forwards {fwd}")
+    check(not any(others.values()), f"{name}: no other trunk kernel ({others})")
+    check("self-heal" not in log and "iter 1/1" in log, f"{name}: one iteration, no self-heal")
+    models = Path(cut["paths"]["checkpoint_dir"])
+    final = models / "final_model.pt"
+    check((models / "checkpoint_iter_000001.pt").is_file() and final.is_file(),
+          f"{name}: checkpoint of iteration 1 and final_model written")
+    rows = metrics_rows(Path(cut["paths"]["log_dir"]))
+    t1 = time.perf_counter()
+    fresh = trainer_lib.AlphaZeroTrainer(cut, log_cb=None)
+    fresh.load_checkpoint(str(final))
+    saved = torch.load(final, map_location="cpu", weights_only=True)["train_state"]
+    check(fresh.state.iteration == 1 and all(
+        torch.equal(saved["model"][k], v.cpu()) for k, v in fresh.model.state_dict().items()),
+        f"{name}: the checkpoint reloads at iteration 1 with every tensor equal")
+    S = cut["game"]["size"]
+    eng = get_engine(S, "reference")
+    x = eng.features(random_positions(eng, 64, S * S // 3, np.random.default_rng(SEED), dev))
+    fused = FusedInference(fresh.model.eval(), variant=fresh.variant)
+    lp, v = fused(x)
+    args = (fused.trunk_w, fused.trunk_scale, fused.trunk_bias, fused.block_games)
+    lp_p, v_p = fused.heads(int8_plain(fresh.variant)(fused.stem(x), *args))
+    check(torch.equal(lp, lp_p) and torch.equal(v, v_p),
+          f"{name}: the reloaded network through {kernel.__name__} == plain trunk")
+    reload_s = time.perf_counter() - t1
+    fresh.close()
+    fields = {"config": "configs/debug_6x6.yaml", "size": S,
+              "model": f"{cut['model']['num_blocks']}x{cut['model']['num_filters']}",
+              "variant": fresh.variant, "games": cut["training"]["self_play_episodes_per_iter"],
+              "simulations": cut["mcts"]["num_simulations"],
+              "sgd_steps": cut["training"]["train_epochs_per_iter"], "forwards": fwd,
+              "trunk_launches": launches, "launches_per_forward": per,
+              "loss": rows["Loss/train"], "self_play_s": round(rows["Time/self_play"], 3),
+              "sgd_s": round(rows["Time/train"], 3), "reload_s": round(reload_s, 3),
+              "train_s": round(seconds, 3)}
+    if gate:
+        m = re.search(r"gating @ iter 1: candidate (\d+)W-(\d+)L-(\d+)D", log)
+        check(m is not None and sum(map(int, m.groups())) == cut["training"]["gating"]["games"]
+              and "Gating/accepted" in rows, f"{name}: the gate match played and logged")
+        fields.update(gate_games=sum(map(int, m.groups())), gate_result=m.group(0),
+                      adopted=bool(rows["Gating/accepted"]), gate_match_s=round(gate[0][0], 3),
+                      gate_forwards=gate[0][1])
+    shutil.rmtree(root, ignore_errors=True)
+    return fields
+
+
+def shapes_phase(dev) -> dict:
+    """The trunks at the other shapes the JAX trunks run (see the module
+    docstring): the kernel checks, the debug_6x6 iteration through int8_dx3
+    and gated through int8_dxcat, the bench at 6x6, the timing at (6, 64),
+    B=1024. Returns {kernel name: the shapes it was checked at}."""
+    t0 = time.perf_counter()
+    checked, nets = check_shape_kernels(dev)
+    check_s = time.perf_counter() - t0
+    cut = config_with("debug_6x6.yaml", DEBUG_6X6_CUT)
+    check((cut["game"]["size"], cut["model"]["num_blocks"], cut["model"]["num_filters"],
+           cut["mcts"]["num_simulations"]) == (6, 5, 64, 10),
+          "configs/debug_6x6.yaml read: 6x6, 5x64, 10 simulations")
+    train_fields = cli_train_at(cut, "debug_6x6_int8_dx3", trunk_int8_dx3, dev)
+    phase("shapes", path="cli train", **train_fields)
+    gated = json.loads(json.dumps(cut))
+    gated["training"]["gating"] = dict(DEBUG_6X6_GATE)
+    gated["system"]["self_play_net_variant"] = "int8_dxcat"
+    gated_fields = cli_train_at(gated, "debug_6x6_int8_dxcat_gated", trunk_int8_dxcat, dev)
+    phase("shapes", path="cli train, gated", **gated_fields)
+
+    forwards = [0]
+    trunk = FusedInference.trunk
+
+    def counted_trunk(self, h):
+        forwards[0] += 1
+        return trunk(self, h)
+
+    for k in set(VARIANT_KERNEL.values()):
+        k.launches = 0
+    FusedInference.trunk = counted_trunk
+    try:
+        line = bench.run(SHAPES_BENCH)
+    finally:
+        FusedInference.trunk = trunk
+    launches = trunk_int8_dx3.launches
+    phase("shapes", argv="bench " + " ".join(SHAPES_BENCH), line=line, forwards=forwards[0],
+          trunk_int8_dx3_launches=launches)
+    check(launches > 0 and launches == 10 * forwards[0],
+          f"bench at 6x6: int8_dx3 launches {launches} == 10 x forwards {forwards[0]}")
+    check(line["model"] == "5x64" and line["net_variant"] == "int8_dx3" and line["value"] > 0,
+          "bench at 6x6 through int8_dx3")
+
+    # ms a forward at B=1024, (6, 64), 10 convs, beside the bounds: wall
+    # (CUDA events; a forward of per-conv launches is the host's ctypes calls
+    # at this size) and device (torch.profiler)
+    eng = get_engine(6, "reference")
+    feats = eng.features(random_positions(eng, GAMES, 12, np.random.default_rng(SEED), dev))
+    layers = 10
+    timing = {}
+    for variant in SHAPE_VARIANTS:
+        kernel = VARIANT_KERNEL[variant]
+        bf16 = variant in ("matmul9", "wide")
+        fused = FusedInference(nets[6, 64]["flax_init" if bf16 else "he_normal"], variant=variant)
+        h = fused.stem(feats)
+        if bf16:
+            args, kw = (fused.trunk_w, fused.trunk_bias), {}
+        else:
+            args = (fused.trunk_w, fused.trunk_scale, fused.trunk_bias, fused.block_games)
+            kw = {"stage_bf16": True} if variant == "int8_bf16" else {}
+        bound_ms, bound_by = trunk_bound_ms(GAMES, layers, 64, bf16, size=6)
+        names = (("bf16_conv_kernel",) if bf16 else TRUNK_DEVICE_NAMES
+                 if kernel is trunk_int8_dxcat else INT8_DEVICE_NAMES)
+        timing[variant] = {"kernel": kernel.__name__,
+                           "ms": time_ms(lambda: kernel(h, *args, **kw), reps=20),
+                           **trunk_device_ms(lambda: kernel(h, *args, **kw), names),
+                           "fused_forward_ms": time_ms(lambda: fused(feats), reps=20),
+                           "bound_ms": bound_ms, "bound_by": bound_by}
+        if not bf16:
+            timing[variant]["bytes_floor_ms"] = int8_bytes_floor_ms(GAMES, layers, 64, size=6)
+    phase("shapes", timing=timing, batch=GAMES, size=6, channels=64, layers=layers)
+    phase("shapes", kernels_checked={k: v[0] for k, v in checked.items()},
+          max_abs_err={k: v[1] for k, v in checked.items()},
+          kernel_check_s=round(check_s, 3), seconds=round(time.perf_counter() - t0, 3))
+    return {k: v[0] for k, v in checked.items()}
+
+
 def bench_phase() -> tuple:
     """The port's bench in process: ``--mode all --repeats 1`` (random_step
     launched once a ply), then ``--mode mcts --net-variant int8``
@@ -2000,14 +2342,21 @@ def main() -> int:
           torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(build.SOURCES)) as pool:  # one nvcc per source, together
-        builds = dict(zip(build.SOURCES, pool.map(build.build, build.SOURCES)))
-    for kname, built in builds.items():
+    # every source at 8x8/128 (random_step at none) and the trunks at phase
+    # shapes' shapes: one nvcc a library, all started together
+    jobs = [(name, None if name in build.UNSHAPED else (8, NUM_FILTERS))
+            for name in build.SOURCES] + SHAPE_BUILDS
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built_all = dict(zip(jobs, pool.map(lambda job: build.build(*job), jobs)))
+    for (kname, shape), built in built_all.items():
         ptxas = [ln.strip() for ln in built.log.splitlines()
                  if "registers" in ln or "smem" in ln or "spill" in ln]
-        phase("build", kernel=kname, seconds=round(built.seconds, 2),
+        phase("build", kernel=kname, shape=shape, seconds=round(built.seconds, 2),
               library=built.path.name, ptxas=ptxas)
-    phase("build", wall_seconds=round(time.perf_counter() - t0, 2))
+    phase("build", wall_seconds=round(time.perf_counter() - t0, 2), libraries=len(jobs),
+          shape_libraries_seconds=round(sum(built_all[job].seconds for job in SHAPE_BUILDS), 2))
+    builds = {kname: built for (kname, shape), built in built_all.items()
+              if shape in (None, (8, NUM_FILTERS))}
     wgmma_evidence(builds)
 
     # 10x128 weights from a numpy seed, through the flax-layout converter
@@ -2135,6 +2484,7 @@ def main() -> int:
     frontends_phase(engine, dev)
     step_launches, int8_launches = bench_phase()
     variant_launches = benchmark_model_phase()
+    shapes_checked = shapes_phase(dev)
 
     # timing at the main paths' shape (B=1024)
     h = fused.stem(feats)
@@ -2298,6 +2648,11 @@ def main() -> int:
             "replaces": f"{PALLAS}:{line}", "launches": variant_launches[kernel.__name__],
             "max_abs_err": variants[variant][0], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    # the shapes each kernel was checked at on the card in this run
+    # (random_step: the board sides)
+    for k in kernels:
+        k["shapes"] = ([[8, NUM_FILTERS]] + shapes_checked.get(k["name"], [])
+                       if k["name"] != "random_step" else [[8], [6], [4]])
     phase("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -4,7 +4,9 @@
 // the int32 3x3 conv, s_act * w_scale first, no FMA, bias, residual and ReLU
 // in f32, a bf16 output) in one persistent cooperative kernel, for the
 // gated iteration's small batches (B = 40-64), where one launch a conv left
-// most SMs idle and paid a launch, a host call and a weight load a conv.
+// most SMs idle and paid a launch, a host call and a weight load a conv. A
+// template on the board side S and the channel count C, as the body; the
+// notes give S = 8, C = 128.
 //
 // Design:
 // - The body's pieces: the A-descriptor shift into a zero-padded 10x10 tile,
@@ -24,13 +26,18 @@
 //     weights, 9 x 64 x 128 = 73,728 B, so two layers fit: the next layer's
 //     half comes by TMA while this one computes. At B = 64, 128 SMs work
 //     (one launch a conv of the body used 32).
+//   * C not a multiple of 32 (16, 48, 80, 112): always whole, since a
+//     quarter would not be whole 8-row groups of the weights; below sms
+//     games the grid is B CTAs.
 //   * B >= sms (whole): every SM has a game a conv already, and a split
 //     would load and quantize each game twice. The grid is sms CTAs, CTA i
 //     takes games i, i + sms, ...; consumer warpgroup c computes half c of
 //     every game from the same tile, and the two buffers hold the two halves
 //     of one layer. The next layer's weights come once both consumers are
 //     done with this one's, during the epilogue's last stores and the
-//     barrier.
+//     barrier. Where half of C is no wgmma width (40 at C = 80, 56 at 112)
+//     the product takes the next one (48, 64): the extra columns read
+//     weights of the next tap or past the buffer, and are dropped.
 // - The whole trunk in one launch: the grid is at most one CTA an SM (the
 //   shared memory), launched cooperatively so that all are co-resident, or
 //   the launch fails. A grid-wide barrier follows the pre-pass and every
@@ -62,60 +69,37 @@ namespace {
 using namespace sm90;
 using namespace int8conv;
 
-constexpr int NH = C / 2;                           // output channels of one wgmma
-constexpr int W_HTAP_BYTES = NH * C;                // one tap's half: 8,192
-constexpr int W_HALF_BYTES = TAPS * W_HTAP_BYTES;   // one layer's half: 73,728
-// + 1024: the weights' alignment; two weight buffers, the ring of padded
-// tiles, two f32 half-games of staging; the barriers: full and empty a
-// tile, one a staging half, one a weight buffer, and the weights' release
-constexpr int TRUNK_SMEM_BYTES =
-    1024 + 2 * W_HALF_BYTES + STAGES * TILE_BYTES + 2 * HALF_BYTES + (2 * STAGES + 5) * 8;
+// The body's geometry and the channel split's
+template <int S_, int C_>
+struct TrunkShape : Shape<S_, C_> {
+  using G = Shape<S_, C_>;
+  static constexpr bool SPLIT_OK = C_ % 32 == 0;  // quarters of whole 8-row groups
+  static constexpr int NH = C_ / 2;     // split: a CTA's channels; whole: a consumer's
+  static constexpr int NQ = C_ / 4;     // split: a consumer's
+  // the wgmma width of a whole-mode consumer: NH, or the next legal s8 n
+  static constexpr int NW = NH <= 24 ? (NH + 7) / 8 * 8 : (NH + 15) / 16 * 16;
+  static constexpr int W_HTAP_BYTES = NH * G::KP;              // one tap's half: 8,192
+  static constexpr int W_HALF_BYTES = TAPS * W_HTAP_BYTES;     // one layer's half: 73,728
+  // + 1024: the weights' alignment; two weight buffers, the ring of padded
+  // tiles, two f32 half-games of staging; the barriers: full and empty a
+  // tile, one a staging half, one a weight buffer, and the weights' release
+  static constexpr int SMEM_BYTES = 1024 + 2 * W_HALF_BYTES + STAGES * G::TILE_BYTES +
+                                    2 * G::HALF_BYTES + (2 * STAGES + 5) * 8;
+  static_assert(SMEM_BYTES <= 232448, "fits one block's shared memory");
+};
 
-static_assert(TRUNK_SMEM_BYTES <= 232448, "fits one block's shared memory");
-
-// d (64 x 64 s32) += A (64 x 32 s8) @ B (32 x 64 s8)
-__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
-        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
-        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
-        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
-        "+r"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// d (64 x 32 s32) += A (64 x 32 s8) @ B (32 x 32 s8)
-__device__ __forceinline__ void wgmma_s8(int (&d)[16], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
-        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
-        "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// One game's products and epilogue for a consumer warpgroup: the 2 * NA
-// output channels from game_off, wscale, bias and the weight rows wb on
-// (NA = 32: 64 channels, 16: 32), once the tile is full; releases the tile
-// (empty) when the products are done. Returns the thread's max.
-template <int NA>
+// One game's products and epilogue for a consumer warpgroup: a wgmma of
+// 2 * NA output channels from the weight rows wb on, of which the first
+// 4 * NR are written (from game_off, wscale and bias on), once the tile is
+// full; releases the tile (empty) when the products are done. Returns the
+// thread's max.
+template <class T, int NA, int NR>
 __device__ __forceinline__ float conv_game(uint32_t tile, uint32_t wb, uint32_t empty,
                                            float s_act, const float* wsc, const float* bi,
                                            const float* resid, float* dst, __nv_bfloat16* out,
                                            size_t game_off, int row0, int col0, int conv1,
                                            int last) {
-  float2 res[NA / 2];
+  float2 res[NR];
   int acc[NA];
 #pragma unroll
   for (int k = 0; k < NA; ++k) acc[k] = 0;
@@ -124,24 +108,26 @@ __device__ __forceinline__ float conv_game(uint32_t tile, uint32_t wb, uint32_t 
 #pragma unroll
   for (int tap = 0; tap < TAPS; ++tap)
 #pragma unroll
-    for (int ks = 0; ks < C / 32; ++ks)
-      wgmma_s8(acc, a_desc(a_tap(tile, tap), ks), b_desc(wb + tap * W_HTAP_BYTES, ks));
+    for (int ks = 0; ks < T::KP / 32; ++ks)
+      wgmma_s8(acc, a_desc<T>(a_tap<T>(tile, tap), ks),
+               b_desc<T>(wb + tap * T::W_HTAP_BYTES, ks, T::NH * T::SW), 1);
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  load_residual(res, resid, game_off, row0, col0, conv1);  // in flight with the products
+  load_residual<T>(res, resid, game_off, row0, col0, conv1);  // in flight with the products
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
   fence_operands(acc);
   mbar_arrive(empty);  // the products are done
-  return last ? epilogue<true>(acc, res, s_act, wsc, bi, dst, out, game_off, row0, col0)
-              : epilogue<false>(acc, res, s_act, wsc, bi, dst, out, game_off, row0, col0);
+  return last ? epilogue<true, T>(acc, res, s_act, wsc, bi, dst, out, game_off, row0, col0)
+              : epilogue<false, T>(acc, res, s_act, wsc, bi, dst, out, game_off, row0, col0);
 }
 
-// Thread 0: half `half` of layer l's weights (nine [64 C_out][128 C_in]
-// boxes) into the buffer at dst, completing on bar
+// Thread 0: half `half` of layer l's weights (the NH output channels from
+// half * NH, every input channel, nine taps) into the buffer at dst,
+// completing on bar
+template <class T>
 __device__ __forceinline__ void load_weights(uint32_t dst, uint32_t bar, const CUtensorMap* map,
                                              int l, int half) {
-  mbar_expect_tx(bar, W_HALF_BYTES);
-  for (int tap = 0; tap < TAPS; ++tap)
-    tma_load_2d(dst + tap * W_HTAP_BYTES, map, 0, (l * TAPS + tap) * C + half * NH, bar);
+  mbar_expect_tx(bar, T::W_HALF_BYTES);
+  load_taps<T>(dst, bar, map, l * TAPS * T::C + half * T::NH, T::NH);
 }
 
 // about 10 s at the SM clock: a grid barrier that waits longer is a fault
@@ -168,25 +154,28 @@ __device__ __forceinline__ void grid_barrier(unsigned* count, unsigned target) {
 
 // The trunk's layers [lb, le), with the pre-pass first when lb = 0.
 //   wmap:  every layer's int8 weights, (L * 9 * C_out) rows of C_in
-//   x:     bf16 (B, 64, C) trunk input
-//   xf, yf: f32 (B, 64, C) block input and conv 0 output
-//   out:   bf16 (B, 64, C) trunk output (the last layer's)
+//   x:     bf16 (B, S * S, C) trunk input
+//   xf, yf: f32 (B, S * S, C) block input and conv 0 output
+//   out:   bf16 (B, S * S, C) trunk output (the last layer's)
 //   wscale, bias: f32 (L, C)
 //   amax:  f32 (L, B / bg) per-block max of each layer's input, zeroed
 //   count: this launch's barrier counter, zeroed
 // SPLIT: the channel split (see the note); one instantiation each, so that
 // each holds the registers of one consumer path
-template <bool SPLIT>
+template <int S, int C, bool SPLIT>
 __global__ void __launch_bounds__(CONV_THREADS, 1)
 int8_trunk_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16* __restrict__ x,
                   float* xf, float* yf, __nv_bfloat16* out, const float* __restrict__ wscale,
                   const float* __restrict__ bias, float* amax, unsigned* count, int L, int B,
                   int bg, int lb, int le) {
+  using T = TrunkShape<S, C>;
+  constexpr int P = T::P, NH = T::NH, NQ = T::NQ;
+  static_assert(!SPLIT || T::SPLIT_OK, "a split only of whole 8-row groups");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ws = (smem_u32(smem_raw) + 1023) & ~1023u;  // two weight buffers
-  const uint32_t tiles = ws + 2 * W_HALF_BYTES;               // the ring of padded tiles
-  const uint32_t staging = tiles + STAGES * TILE_BYTES;       // two f32 half-games
-  const uint32_t bars = staging + 2 * HALF_BYTES;             // full[STAGES], empty[STAGES]
+  const uint32_t tiles = ws + 2 * T::W_HALF_BYTES;            // the ring of padded tiles
+  const uint32_t staging = tiles + STAGES * T::TILE_BYTES;    // two f32 half-games
+  const uint32_t bars = staging + 2 * T::HALF_BYTES;          // full[STAGES], empty[STAGES]
   const uint32_t sbars = bars + 2 * STAGES * 8;               // the staging halves'
   const uint32_t wbars = sbars + 2 * 8;                       // the weight buffers'
   const uint32_t wfree = wbars + 2 * 8;                       // consumers done with a layer
@@ -211,14 +200,14 @@ int8_trunk_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16*
     mbar_init(wfree, 256);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     if (SPLIT) {  // the first two layers of this CTA's half
-      load_weights(ws, wbars, &wmap, lb, my_half);
-      if (lb + 1 < le) load_weights(ws + W_HALF_BYTES, wbars + 8, &wmap, lb + 1, my_half);
+      load_weights<T>(ws, wbars, &wmap, lb, my_half);
+      if (lb + 1 < le) load_weights<T>(ws + T::W_HALF_BYTES, wbars + 8, &wmap, lb + 1, my_half);
     } else {      // both halves of the first layer
-      load_weights(ws, wbars, &wmap, lb, 0);
-      load_weights(ws + W_HALF_BYTES, wbars + 8, &wmap, lb, 1);
+      load_weights<T>(ws, wbars, &wmap, lb, 0);
+      load_weights<T>(ws + T::W_HALF_BYTES, wbars + 8, &wmap, lb, 1);
     }
   }
-  for (int i = tid; i < STAGES * TILE_BYTES / 16; i += CONV_THREADS) st_zero16(tiles + i * 16);
+  for (int i = tid; i < STAGES * T::TILE_BYTES / 16; i += CONV_THREADS) st_zero16(tiles + i * 16);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the halos, for wgmma
   __syncthreads();
 
@@ -252,9 +241,7 @@ int8_trunk_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16*
     grid_barrier(count, ++barriers * gridDim.x);
   }
 
-  // the producer's thread: its float4s and their place in a tile (see
-  // int8_conv_sm90.cuh's producer); the consumers' accumulator positions
-  const uint32_t q_off = ((t & 31) >> 2) * CHUNK_BYTES + (t & 3) * 4 + (PADW + 1 + (t >> 5)) * 16;
+  // the consumers' accumulator positions (see int8_conv_sm90.cuh's epilogue)
   const int row0 = wl * 16 + (lane >> 2), col0 = 2 * (lane & 3);
   int jj = 0;  // the CTA's games before this layer in the launch: ring slots and phases
   for (int l = lb; l < le; ++l, jj += n) {
@@ -264,9 +251,10 @@ int8_trunk_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16*
     const float* amax_in = amax + l * nblk;
     if (wg == 0) {
       // the producer: each game by two bulk copies, quantized into the ring
+      // (see int8_conv_sm90.cuh's producer)
       if (t == 0) {
-        stage_half(staging, sbars, in, slot, 0);
-        stage_half(staging, sbars, in, slot, 1);
+        stage_half<T>(staging, sbars, in, slot, 0);
+        stage_half<T>(staging, sbars, in, slot, 1);
       }
       for (int i = 0; i < n; ++i) {
         const int j = jj + i, g = slot + i * step, s = j % STAGES;
@@ -276,16 +264,12 @@ int8_trunk_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16*
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           mbar_wait(sbars + hh * 8, j & 1);
-          float4 v[LOADS];
-#pragma unroll
-          for (int k = 0; k < LOADS; ++k)
-            asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-                         : "=f"(v[k].x), "=f"(v[k].y), "=f"(v[k].z), "=f"(v[k].w)
-                         : "r"(staging + hh * HALF_BYTES + (t + 128 * k) * 16)
-                         : "memory");
-          quantize_into(tiles + s * TILE_BYTES + q_off + hh * (S / 2) * PADW * 16, v, s_act, y);
+          float4 v[T::LOADS];
+          read_half<T>(v, staging + hh * T::HALF_BYTES, t);
+          quantize_into<T>(tiles + s * T::TILE_BYTES + hh * (S / 2) * T::PADW * 16, v, s_act, y,
+                           t);
           wg_sync(0);  // every producer thread has read the half
-          if (t == 0 && i + 1 < n) stage_half(staging, sbars, in, g + step, hh);
+          if (t == 0 && i + 1 < n) stage_half<T>(staging, sbars, in, g + step, hh);
         }
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma's reads
         mbar_arrive(bars + s * 8);                                      // full[s]
@@ -295,30 +279,31 @@ int8_trunk_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16*
       if (t == 0 && next < le) {
         mbar_wait(wfree, li & 1);
         if (SPLIT) {
-          load_weights(ws + (li & 1) * W_HALF_BYTES, wbars + (li & 1) * 8, &wmap, next, my_half);
+          load_weights<T>(ws + (li & 1) * T::W_HALF_BYTES, wbars + (li & 1) * 8, &wmap, next,
+                          my_half);
         } else {
-          load_weights(ws, wbars, &wmap, next, 0);
-          load_weights(ws + W_HALF_BYTES, wbars + 8, &wmap, next, 1);
+          load_weights<T>(ws, wbars, &wmap, next, 0);
+          load_weights<T>(ws + T::W_HALF_BYTES, wbars + 8, &wmap, next, 1);
         }
       }
     } else {
       // the consumers, on every game of the CTA: split, warpgroup 1 + c
-      // computes quarter c of the CTA's half (32 channels); whole, half c
+      // computes quarter c of the CTA's half (NQ channels); whole, half c
       const int c = wg - 1;
       const int b = SPLIT ? li & 1 : c;
-      const int n0 = SPLIT ? my_half * NH + c * (NH / 2) : c * NH;  // the first channel
+      const int n0 = SPLIT ? my_half * NH + c * NQ : c * NH;  // the first channel
       mbar_wait(wbars + b * 8, SPLIT ? (li >> 1) & 1 : li & 1);
-      const uint32_t wb = ws + b * W_HALF_BYTES + (SPLIT ? c * (NH / 2) * C : 0);
+      const uint32_t wb = ws + b * T::W_HALF_BYTES + (SPLIT ? c * NQ * T::SW : 0);
       const float* wsc = wscale + l * C + n0;
       const float* bi = bias + l * C + n0;
       for (int i = 0; i < n; ++i) {
         const int j = jj + i, g = slot + i * step, s = j % STAGES;
         const float s_act = act_scale(__ldcg(amax_in + g / bg));
         const size_t game_off = static_cast<size_t>(g) * P * C + n0;
-        const uint32_t tile = tiles + s * TILE_BYTES, empty = bars + (STAGES + s) * 8;
+        const uint32_t tile = tiles + s * T::TILE_BYTES, empty = bars + (STAGES + s) * 8;
         mbar_wait(bars + s * 8, (j / STAGES) & 1);  // full[s]
-        float m = conv_game<SPLIT ? 16 : 32>(tile, wb, empty, s_act, wsc, bi, xf, dst, out,
-                                             game_off, row0, col0, conv1, last);
+        float m = conv_game<T, SPLIT ? NQ / 2 : T::NW / 2, SPLIT ? NQ / 4 : NH / 4>(
+            tile, wb, empty, s_act, wsc, bi, xf, dst, out, game_off, row0, col0, conv1, last);
         m = warp_max(m);
         if (lane == 0 && l + 1 < L)
           atomicMax(reinterpret_cast<int*>(amax + (l + 1) * nblk + g / bg), __float_as_int(m));
@@ -329,35 +314,55 @@ int8_trunk_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16*
   }
 }
 
+// The kernel for a launch: split where the shape allows it and it is asked
+template <int S, int C>
+auto trunk_kernel(bool split) {
+  if constexpr (TrunkShape<S, C>::SPLIT_OK)
+    return split ? int8_trunk_kernel<S, C, true> : int8_trunk_kernel<S, C, false>;
+  else
+    return int8_trunk_kernel<S, C, false>;
+}
+
 // Layers [lb, le) of the trunk in one cooperative launch on barrier counter
 // `count`. w: (L, 9, C_out, C_in) int8. Returns 0, a cudaError_t, or minus
 // a CUresult of the tensor-map encoder.
+template <int S, int C>
 int launch_layers(const void* x, void* xf, void* yf, void* out, const void* w, const void* wscale,
                   const void* bias, void* amax, void* count, int L, int B, int bg, int lb, int le,
                   void* stream) {
+  using T = TrunkShape<S, C>;
   static HostState hosts[2];  // the split kernel's, the whole one's
-  // a box is one tap's half: 64 output channels x 128 input channels, rows
-  // of 128 B, swizzled as wgmma reads them
+  // a box is one panel of one tap's half: NH output channels x SW input
+  // channels (64 x 128 at C = 128), swizzled as wgmma reads them
   const WeightMap layout = {CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                            {C, static_cast<cuuint64_t>(L) * TAPS * C}, C, {C, NH}};
+                            {C, static_cast<cuuint64_t>(L) * TAPS * C},
+                            C,
+                            {T::SW, T::NH},
+                            swizzle_mode(T::SW)};
   CUtensorMap wmap;
   int sms = 0;
-  int rc = prepare_launch(hosts[0], reinterpret_cast<const void*>(int8_trunk_kernel<true>),
-                          TRUNK_SMEM_BYTES, w, layout, &wmap, &sms);
-  if (rc != 0) return rc;
-  const bool split = B < sms;
-  auto kernel = split ? int8_trunk_kernel<true> : int8_trunk_kernel<false>;
+  int rc = 0;
+  bool split = false;
+  if constexpr (T::SPLIT_OK) {
+    rc = prepare_launch(hosts[0], reinterpret_cast<const void*>(trunk_kernel<S, C>(true)),
+                        T::SMEM_BYTES, w, layout, &wmap, &sms);
+    if (rc != 0) return rc;
+    split = B < sms;
+  }
+  auto kernel = trunk_kernel<S, C>(split);
   if (!split &&
-      (rc = prepare_launch(hosts[1], reinterpret_cast<const void*>(kernel), TRUNK_SMEM_BYTES, w,
+      (rc = prepare_launch(hosts[1], reinterpret_cast<const void*>(kernel), T::SMEM_BYTES, w,
                            layout, &wmap, &sms)) != 0)
     return rc;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
   attr[0].val.cooperative = 1;
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(split ? 2 * (B < sms / 2 ? B : sms / 2) : sms);
+  // every CTA has a game: a CTA pair a game below sms / 2 games (split), one
+  // CTA a game below sms (whole, at widths that do not split)
+  config.gridDim = dim3(split ? 2 * (B < sms / 2 ? B : sms / 2) : (B < sms ? B : sms));
   config.blockDim = dim3(CONV_THREADS);
-  config.dynamicSmemBytes = TRUNK_SMEM_BYTES;
+  config.dynamicSmemBytes = T::SMEM_BYTES;
   config.stream = static_cast<cudaStream_t>(stream);
   config.attrs = attr;
   config.numAttrs = 1;
@@ -372,6 +377,7 @@ int launch_layers(const void* x, void* xf, void* yf, void* out, const void* w, c
 // One trunk forward: zeroes the scratch (the amax, L x B / bg floats, then
 // L barrier counters), then launches the layers, `per_launch` at a time (L:
 // the whole trunk in one launch).
+template <int S, int C>
 int forward(const void* x, void* xf, void* yf, void* out, const void* w, const void* wscale,
             const void* bias, void* scratch, int L, int B, int bg, int per_launch, void* stream) {
   if (B <= 0) return 0;
@@ -387,8 +393,8 @@ int forward(const void* x, void* xf, void* yf, void* out, const void* w, const v
   if (e != cudaSuccess) return static_cast<int>(e);
   for (int lb = 0; lb < L; lb += per_launch) {
     const int le = lb + per_launch < L ? lb + per_launch : L;
-    const int rc = launch_layers(x, xf, yf, out, w, wscale, bias, amax, counts + lb, L, B, bg,
-                                 lb, le, stream);
+    const int rc = launch_layers<S, C>(x, xf, yf, out, w, wscale, bias, amax, counts + lb, L, B,
+                                       bg, lb, le, stream);
     if (rc != 0) return rc;
   }
   return 0;

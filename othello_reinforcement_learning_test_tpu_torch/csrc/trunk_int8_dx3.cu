@@ -29,19 +29,28 @@
 // stores 0.53 ms, without the input loads 0.64 ms, without the products
 // 0.71 ms: the f32 activation traffic limits it, the stores most.
 //
+// Shapes: board side S in {4, 6, 8} and C a multiple of 16 up to 128, one
+// library a shape (built with -DTRUNK_S, -DTRUNK_C); the wrapper refuses any
+// other before a launch. The figures above are at S = 8, C = 128.
+//
 // Plain C interface for ctypes; each function returns 0 or an error code.
 
 #include "int8_conv_sm90.cuh"
 
+#if !defined(TRUNK_S) || !defined(TRUNK_C)
+#error "build with -DTRUNK_S=<board side> -DTRUNK_C=<channels> (kernels/build.py)"
+#endif
+
 extern "C" int trunk_dx3_prepass(const void* x, void* xf, void* amax, int B, int bg,
                                  int num_layers, void* stream) {
-  return int8conv::prepass(x, xf, amax, B, bg, num_layers, stream);
+  return int8conv::prepass<TRUNK_S, TRUNK_C>(x, xf, amax, B, bg, num_layers, stream);
 }
 
 extern "C" int trunk_dx3_conv(const void* in, const void* resid, void* out, void* out_bf16,
                               const void* w, const void* wscale, const void* bias, void* amax,
                               int layer, int num_layers, int B, int bg, int is_conv1,
                               int is_last, void* stream) {
-  return int8conv::launch<false>(in, resid, out, out_bf16, w, wscale, bias, amax, layer,
-                                 num_layers, B, bg, is_conv1, is_last, stream);
+  return int8conv::launch<TRUNK_S, TRUNK_C, false>(in, resid, out, out_bf16, w, wscale, bias,
+                                                   amax, layer, num_layers, B, bg, is_conv1,
+                                                   is_last, stream);
 }

@@ -25,15 +25,24 @@
 //   activation traffic between convs binds (1.71 GB a forward, 0.512 ms
 //   at 3.35 TB/s, less where the L2 holds it), as for trunk_int8_dx3.cu.
 //
+// Shapes: board side S in {4, 6, 8} and C a multiple of 16 up to 128, one
+// library a shape (built with -DTRUNK_S, -DTRUNK_C); the wrapper refuses any
+// other before a launch. The figures above are at S = 8, C = 128.
+//
 // Plain C interface for ctypes; returns 0 or an error code.
 
 #include "int8_trunk_sm90.cuh"
 
-// One forward: x bf16 (B, 64, C); xf, yf f32 (B, 64, C) scratch; out bf16
-// (B, 64, C); w int8 (L, 9, C_out, C_in); wscale, bias f32 (L, C);
+#if !defined(TRUNK_S) || !defined(TRUNK_C)
+#error "build with -DTRUNK_S=<board side> -DTRUNK_C=<channels> (kernels/build.py)"
+#endif
+
+// One forward: x bf16 (B, S * S, C); xf, yf f32 (B, S * S, C) scratch; out
+// bf16 (B, S * S, C); w int8 (L, 9, C_out, C_in); wscale, bias f32 (L, C);
 // scratch 4 * (L * B / bg + L) bytes, zeroed here. One memset, one launch.
 extern "C" int trunk_dxcat(const void* x, void* xf, void* yf, void* out, const void* w,
                            const void* wscale, const void* bias, void* scratch, int L, int B,
                            int bg, void* stream) {
-  return int8trunk::forward(x, xf, yf, out, w, wscale, bias, scratch, L, B, bg, L, stream);
+  return int8trunk::forward<TRUNK_S, TRUNK_C>(x, xf, yf, out, w, wscale, bias, scratch, L, B,
+                                              bg, L, stream);
 }

@@ -19,8 +19,10 @@
 // from the bias, inside the bound `sum_error_bound` puts on any order of the
 // 9C + 10 terms.
 //
-// Shapes: 8x8 boards and C = 128 channels only (the wrapper raises on any
-// other); the plain version takes any board side and channel count.
+// Shapes: board side S in {4, 6, 8} and C a multiple of 16 up to 128, one
+// library a shape (built with -DTRUNK_S, -DTRUNK_C); the wrapper refuses any
+// other before a launch. The plain version takes any board side and
+// channel count.
 //
 // Bound on an H100 SXM: 2 * 9 * C^2 * (B * 64) * L = 3.87e11 bf16 operations
 // per forward at B = 1024, L = 20, C = 128, 0.391 ms at the dense bf16
@@ -44,7 +46,12 @@
 
 #include "bf16_conv_sm90.cuh"
 
+#if !defined(TRUNK_S) || !defined(TRUNK_C)
+#error "build with -DTRUNK_S=<board side> -DTRUNK_C=<channels> (kernels/build.py)"
+#endif
+
 extern "C" int trunk_m9_conv(const void* in, const void* resid, void* out, const void* w,
                              const void* bias, int B, int is_conv1, void* stream) {
-  return bf16conv::launch<false, false>(in, resid, out, w, bias, B, is_conv1, stream);
+  return bf16conv::launch<TRUNK_S, TRUNK_C, false, false>(in, resid, out, w, bias, B, is_conv1,
+                                                          stream);
 }

@@ -6,6 +6,11 @@ git-ignored ``_build/`` directory on first use. The library's file name
 carries a hash of the source, the headers ``csrc/*.cuh`` and the flags, so
 an edited source or header is rebuilt and an unchanged one is reused.
 
+The trunk sources are templates on the board side S and the channel count
+C: each library is one shape, built at its first use with ``-DTRUNK_S`` and
+``-DTRUNK_C`` (in its file name and hash), so a process builds only the
+shapes it runs. :func:`check_trunk_shape` states the shapes they take.
+
 ``-fmad=false`` keeps every float multiply and add separately rounded, as
 the plain PyTorch versions compute them, so kernel and plain version can
 agree bit for bit.
@@ -21,7 +26,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -29,6 +34,12 @@ BUILD_DIR = _PKG / "_build"
 # every kernel source, csrc/<name>.cu, in the order chip_smoke.py reports them
 SOURCES = ("trunk_int8_dx3", "trunk_matmul9", "trunk_int8", "random_step", "trunk_wide",
            "trunk_int8_m9", "trunk_int8_patch", "trunk_int8_flat", "trunk_int8_dxcat")
+# the sources that are not trunks, built without a shape
+UNSHAPED = ("random_step",)
+# the trunks' shapes: every board side the engine takes, and channel counts
+# whose layer of int8 weights (9 C^2 bytes) one CTA's shared memory holds
+BOARD_SIDES = (4, 6, 8)
+CHANNEL_STEP, MAX_CHANNELS = 16, 128
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
@@ -60,19 +71,45 @@ def find_nvcc() -> str:
         "CUDA toolkit under /usr/local/cuda")
 
 
+def check_trunk_shape(S: int, C: int) -> None:
+    """Raise ``ValueError`` unless the CUDA trunk kernels take S x S boards
+    of C channels: S in :data:`BOARD_SIDES`, C a multiple of 16 from 16 to
+    128 (above 128 a layer's int8 weights do not fit one CTA)."""
+    if S not in BOARD_SIDES or C % CHANNEL_STEP or not CHANNEL_STEP <= C <= MAX_CHANNELS:
+        raise ValueError(
+            f"the CUDA trunk kernels take board sides {', '.join(map(str, BOARD_SIDES))} and "
+            f"channel counts that are multiples of {CHANNEL_STEP} from {CHANNEL_STEP} to "
+            f"{MAX_CHANNELS}; got S={S} C={C}")
+
+
+def trunk_shape(x) -> Tuple[int, int]:
+    """(S, C) of a trunk input (B, S, S, C), checked by :func:`check_trunk_shape`."""
+    S, C = int(x.shape[2]), int(x.shape[3])
+    check_trunk_shape(S, C)
+    return S, C
+
+
 @functools.cache
-def build(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` unless a library for this exact source,
-    these headers and these flags already exists."""
+def build(name: str, shape: Optional[Tuple[int, int]] = None) -> Built:
+    """Compile ``csrc/<name>.cu`` (a trunk at ``shape``, (S, C)) unless a
+    library for this exact source, these headers, flags and shape already
+    exists."""
+    if (shape is None) != (name in UNSHAPED):
+        raise ValueError(f"{name} is built {'without' if name in UNSHAPED else 'with'} a shape")
+    if shape is not None:
+        check_trunk_shape(*shape)
     src = CSRC_DIR / f"{name}.cu"
+    flags = NVCC_FLAGS if shape is None else (*NVCC_FLAGS, f"-DTRUNK_S={shape[0]}",
+                                               f"-DTRUNK_C={shape[1]}")
     text = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
+    tag = "" if shape is None else f"-s{shape[0]}c{shape[1]}"
+    out = BUILD_DIR / f"lib{name}{tag}-{digest}.so"
     if out.exists():
         return Built(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [find_nvcc(), *flags, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -85,5 +122,5 @@ def build(name: str) -> Built:
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build(name).path))
+def load(name: str, shape: Optional[Tuple[int, int]] = None) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build(name, shape).path))

@@ -58,8 +58,8 @@ STAGE_EDITS = {
     "loads": [
         ("    if (g_next < B) {  // in flight during this game's products",
          "    if (false) {"),
-        ("    if (g_next < B) {  // the staging overwrote the halo\n      zero_halo(stage, t);",
-         "    zero_halo(stage, t);\n    if (false) {"),
+        ("    if (g_next < B) {  // the staging overwrote the halo\n      zero_halo<G>(stage, t);",
+         "    zero_halo<G>(stage, t);\n    if (false) {"),
     ],
     "stores": [
         ("      *reinterpret_cast<uint4*>(out + off) = make_uint4(o[0], o[1], o[2], o[3]);",
@@ -67,12 +67,10 @@ STAGE_EDITS = {
          "        *reinterpret_cast<uint4*>(out + off) = make_uint4(o[0], o[1], o[2], o[3]);"),
     ],
     "products": [
-        ("  for (int ks = 0; ks < C / 16; ++ks) wgmma_m64n64k16(d, a_desc(a_tap, ks), "
-         "b_desc(b_tap, ks), ks);",
-         "  for (int ks = 0; ks < 0; ++ks) wgmma_m64n64k16(d, a_desc(a_tap, ks), "
-         "b_desc(b_tap, ks), ks);"),
-        ("        for (int ks = 0; ks < C / 16; ++ks)\n          wgmma_m64n64k16(acc,",
-         "        for (int ks = 0; ks < 0; ++ks)\n          wgmma_m64n64k16(acc,"),
+        ("  for (int ks = 0; ks < G::C / 16; ++ks)\n    wgmma_bf16(d,",
+         "  for (int ks = 0; ks < 0; ++ks)\n    wgmma_bf16(d,"),
+        ("        for (int ks = 0; ks < C / 16; ++ks)\n          wgmma_bf16(acc,",
+         "        for (int ks = 0; ks < 0; ++ks)\n          wgmma_bf16(acc,"),
     ],
 }
 VARIANTS = {"full": (), "no_loads": ("loads",), "no_stores": ("stores",),
@@ -80,11 +78,11 @@ VARIANTS = {"full": (), "no_loads": ("loads",), "no_stores": ("stores",),
 ENTRY = """#include "{header}"
 extern "C" int conv_m9(const void* in, const void* resid, void* out, const void* w,
                        const void* bias, int B, int is_conv1, void* stream) {{
-  return bf16conv::launch<false, false>(in, resid, out, w, bias, B, is_conv1, stream);
+  return bf16conv::launch<8, 128, false, false>(in, resid, out, w, bias, B, is_conv1, stream);
 }}
 extern "C" int conv_wide(const void* in, const void* resid, void* out, const void* w,
                          const void* bias, int B, int is_conv1, void* stream) {{
-  return bf16conv::launch<true, true>(in, resid, out, w, bias, B, is_conv1, stream);
+  return bf16conv::launch<8, 128, true, true>(in, resid, out, w, bias, B, is_conv1, stream);
 }}
 """
 
@@ -93,7 +91,7 @@ NEVER = "0x7fc00001u"  # a NaN's bits that no output has
 INT8_STAGE_EDITS = {
     "loads": [
         ("        mbar_wait(sbars + hh * 8, j & 1);", "        if (j == 0) mbar_wait(sbars + hh * 8, 0);"),
-        ("        if (t == 0 && g + step < B) stage_half(", "        if (false) stage_half("),
+        ("        if (t == 0 && g + step < B) stage_half<G>(", "        if (false) stage_half<G>("),
     ],
     "quantize": [
         ("    w[i] = pack4(quantize1(v[i].x, y, near), quantize1(v[i].y, y, near),\n"
@@ -111,10 +109,10 @@ INT8_STAGE_EDITS = {
          "          *reinterpret_cast<float2*>(out + off) = make_float2(z0, z1);"),
     ],
     "products": [
-        ("  for (int ks = 0; ks < C / 32; ++ks)\n    wgmma_m64n128k32(d,",
-         "  for (int ks = 0; ks < 0; ++ks)\n    wgmma_m64n128k32(d,"),
-        ("        for (int ks = 0; ks < C / 32; ++ks)\n          wgmma_m64n128k32(acc,",
-         "        for (int ks = 0; ks < 0; ++ks)\n          wgmma_m64n128k32(acc,"),
+        ("  for (int ks = 0; ks < G::KP / 32; ++ks)\n    wgmma_s8(d,",
+         "  for (int ks = 0; ks < 0; ++ks)\n    wgmma_s8(d,"),
+        ("        for (int ks = 0; ks < G::KP / 32; ++ks)\n          wgmma_s8(acc,",
+         "        for (int ks = 0; ks < 0; ++ks)\n          wgmma_s8(acc,"),
     ],
 }
 INT8_VARIANTS = {"full": (), "no_loads": ("loads",), "no_quantize": ("quantize",),
@@ -123,13 +121,13 @@ INT8_VARIANTS = {"full": (), "no_loads": ("loads",), "no_quantize": ("quantize",
 INT8_ENTRY = """#include "{header}"
 extern "C" int prepass(const void* x, void* xf, void* amax, int B, int bg, int num_layers,
                        void* stream) {{
-  return int8conv::prepass(x, xf, amax, B, bg, num_layers, stream);
+  return int8conv::prepass<8, 128>(x, xf, amax, B, bg, num_layers, stream);
 }}
 extern "C" int conv(const void* in, const void* resid, void* out, void* out_bf16,
                     const void* w, const void* wscale, const void* bias, void* amax, int layer,
                     int num_layers, int B, int bg, int is_conv1, int is_last, int stage_bf16,
                     void* stream) {{
-  return (stage_bf16 ? int8conv::launch<true> : int8conv::launch<false>)(
+  return (stage_bf16 ? int8conv::launch<8, 128, true> : int8conv::launch<8, 128, false>)(
       in, resid, out, out_bf16, w, wscale, bias, amax, layer, num_layers, B, bg, is_conv1,
       is_last, stream);
 }}
@@ -138,14 +136,14 @@ TRUNK_HEADER = "int8_trunk_sm90.cuh"
 TRUNK_STAGE_EDITS = {
     "barrier": [("    } while (v < target);", "    } while (false);")],
     "loads": [
-        ("      if (t == 0) {\n        stage_half(staging, sbars, in, slot, 0);",
-         "      if (t == 0 && jj == 0) {\n        stage_half(staging, sbars, in, slot, 0);"),
+        ("      if (t == 0) {\n        stage_half<T>(staging, sbars, in, slot, 0);",
+         "      if (t == 0 && jj == 0) {\n        stage_half<T>(staging, sbars, in, slot, 0);"),
         ("          mbar_wait(sbars + hh * 8, j & 1);",
          "          if (j == 0) mbar_wait(sbars + hh * 8, 0);"),
-        ("          if (t == 0 && i + 1 < n) stage_half(", "          if (false) stage_half("),
+        ("          if (t == 0 && i + 1 < n) stage_half<T>(", "          if (false) stage_half<T>("),
     ],
     "products": [
-        ("    for (int ks = 0; ks < C / 32; ++ks)\n      wgmma_s8(acc,",
+        ("    for (int ks = 0; ks < T::KP / 32; ++ks)\n      wgmma_s8(acc,",
          "    for (int ks = 0; ks < 0; ++ks)\n      wgmma_s8(acc,"),
     ],
 }
@@ -155,8 +153,8 @@ TRUNK_ENTRY = """#include "{header}"
 extern "C" int trunk(const void* x, void* xf, void* yf, void* out, const void* w,
                      const void* wscale, const void* bias, void* scratch, int L, int B, int bg,
                      int per_launch, void* stream) {{
-  return int8trunk::forward(x, xf, yf, out, w, wscale, bias, scratch, L, B, bg, per_launch,
-                            stream);
+  return int8trunk::forward<8, 128>(x, xf, yf, out, w, wscale, bias, scratch, L, B, bg,
+                                    per_launch, stream);
 }}
 """
 # body: (header, its stage edits, its variants, the entry points' source)

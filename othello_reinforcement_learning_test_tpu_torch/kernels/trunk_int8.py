@@ -67,16 +67,16 @@ def trunk_int8(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
     layout); w_scale, bias: (L, C) f32. Returns bf16 (B, S, S, C).
 
     On a CUDA tensor this launches the hand-written kernel (one launch per
-    conv, each counted in ``trunk_int8.launches``; 8x8 boards and 128
-    channels only) or raises; the plain version runs only for a tensor on
-    the CPU.
+    conv, each counted in ``trunk_int8.launches``; the shapes of
+    :func:`~.build.check_trunk_shape`) or raises; the plain version runs
+    only for a tensor on the CPU.
     """
     check_int8_args(x, w, w_scale, bias, lambda C: (9, C, C))
     if x.device.type == "cpu":
         return trunk_int8_plain(x, w, w_scale, bias, block_games, stage_bf16)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    lib = int8_library("trunk_int8", "trunk_int8", num_flags=1)
+    lib = int8_library("trunk_int8", "trunk_int8", x, num_flags=1)
     return launch_int8_trunk(trunk_int8, lib.trunk_int8_prepass, lib.trunk_int8_conv,
                              x, w, w_scale, bias, block_games, int(stage_bf16))
 

@@ -140,11 +140,12 @@ def check_int8_args(x, w, w_scale, bias, w_tail) -> int:
     return L
 
 
-def int8_library(name: str, prefix: str, num_flags: int = 0) -> ctypes.CDLL:
-    """Load ``csrc/<name>.cu`` (built on first use) and declare its
-    ``<prefix>_prepass`` and ``<prefix>_conv``; ``num_flags`` is the count
-    of the conv's own trailing int arguments."""
-    lib = build.load(name)
+def int8_library(name: str, prefix: str, x: torch.Tensor, num_flags: int = 0) -> ctypes.CDLL:
+    """Load ``csrc/<name>.cu`` at the shape of the trunk input ``x`` (built
+    on first use; a shape :func:`~.build.check_trunk_shape` refuses raises
+    first) and declare its ``<prefix>_prepass`` and ``<prefix>_conv``;
+    ``num_flags`` is the count of the conv's own trailing int arguments."""
+    lib = build.load(name, build.trunk_shape(x))
     prepass, conv = getattr(lib, f"{prefix}_prepass"), getattr(lib, f"{prefix}_conv")
     if conv.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -161,10 +162,9 @@ def launch_int8_trunk(wrapper, prepass, conv, x: torch.Tensor, w: torch.Tensor,
     """The launch sequence the int8 trunk kernels share: one pre-pass (bf16
     input to f32, the first layer's per-block amax), then one ``conv``
     launch per layer, each counted in ``wrapper.launches``; ``flags`` are
-    the kernel's own trailing arguments. 8x8 boards and 128 channels only."""
+    the kernel's own trailing arguments, ``prepass`` and ``conv`` those of
+    the library at x's shape (:func:`int8_library`)."""
     B, S, _, C = x.shape
-    if (S, C) != (8, 128):
-        raise ValueError(f"the CUDA kernel takes 8x8 boards and 128 channels, got S={S} C={C}")
     L = w.shape[0]
     bg = block_size(B, block_games)
 
@@ -211,7 +211,7 @@ def trunk_int8_dx3(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
         return trunk_int8_dx3_plain(x, w, w_scale, bias, block_games)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    lib = int8_library("trunk_int8_dx3", "trunk_dx3")
+    lib = int8_library("trunk_int8_dx3", "trunk_dx3", x)
     return launch_int8_trunk(trunk_int8_dx3, lib.trunk_dx3_prepass, lib.trunk_dx3_conv,
                              x, w, w_scale, bias, block_games)
 

@@ -51,8 +51,10 @@ def trunk_int8_dxcat_plain(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tens
                       bg).to(torch.bfloat16)
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("trunk_int8_dxcat")
+def _library(x: torch.Tensor) -> ctypes.CDLL:
+    """The kernel's library at the shape of ``x`` (a shape
+    :func:`~.build.check_trunk_shape` refuses raises first)."""
+    lib = build.load("trunk_int8_dxcat", build.trunk_shape(x))
     if lib.trunk_dxcat.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.trunk_dxcat.argtypes = [p] * 8 + [i] * 3 + [p]
@@ -69,20 +71,19 @@ def trunk_int8_dxcat(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
 
     On a CUDA tensor this makes one host call that launches the hand-written
     kernel once for the whole trunk (counted in
-    ``trunk_int8_dxcat.launches``; 8x8 boards and 128 channels only) or
-    raises; the plain version runs only for a tensor on the CPU.
+    ``trunk_int8_dxcat.launches``; the shapes of
+    :func:`~.build.check_trunk_shape`) or raises; the plain version runs
+    only for a tensor on the CPU.
     """
     check_int8_args(x, w, w_scale, bias, lambda C: (9, C, C))
     if x.device.type == "cpu":
         return trunk_int8_dxcat_plain(x, w, w_scale, bias, block_games)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    lib = _library(x)
     B, S, _, C = x.shape
-    if (S, C) != (8, 128):
-        raise ValueError(f"the CUDA kernel takes 8x8 boards and 128 channels, got S={S} C={C}")
     L = w.shape[0]
     bg = block_size(B, block_games)
-    lib = _library()
     with torch.cuda.device(x.device):
         act = B * S * S * C
         # the f32 block input and conv 0 output, then the scratch the call

@@ -55,16 +55,16 @@ def trunk_int8_m9(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
     bias: (L, C) f32. Returns bf16 (B, S, S, C).
 
     On a CUDA tensor this launches the hand-written kernel (one launch per
-    conv, each counted in ``trunk_int8_m9.launches``; 8x8 boards and 128
-    channels only) or raises; the plain version runs only for a tensor on
-    the CPU.
+    conv, each counted in ``trunk_int8_m9.launches``; the shapes of
+    :func:`~.build.check_trunk_shape`) or raises; the plain version runs
+    only for a tensor on the CPU.
     """
     check_int8_args(x, w, w_scale, bias, lambda C: (9, C, C))
     if x.device.type == "cpu":
         return trunk_int8_m9_plain(x, w, w_scale, bias, block_games)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    lib = int8_library("trunk_int8_m9", "trunk_int8m9")
+    lib = int8_library("trunk_int8_m9", "trunk_int8m9", x)
     return launch_int8_trunk(trunk_int8_m9, lib.trunk_int8m9_prepass, lib.trunk_int8m9_conv,
                              x, w, w_scale, bias, block_games)
 

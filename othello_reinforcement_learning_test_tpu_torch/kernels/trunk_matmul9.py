@@ -76,8 +76,7 @@ def trunk_matmul9_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) ->
 def check_bf16_args(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, w_tail,
                     blocks: bool = True) -> int:
     """Check a bf16 trunk's (or, with ``blocks=False``, one conv's)
-    arguments; ``w_tail(C)`` is the weights' shape after L. On CUDA, 8x8
-    boards and 128 channels only. Returns L."""
+    arguments; ``w_tail(C)`` is the weights' shape after L. Returns L."""
     if x.dim() != 4 or x.shape[1] != x.shape[2] or x.dtype != torch.bfloat16:
         raise ValueError(f"x must be bf16 (B, S, S, C), got {x.dtype} {tuple(x.shape)}")
     C = x.shape[3]
@@ -96,17 +95,15 @@ def check_bf16_args(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, w_tail
             raise ValueError("all tensors must be contiguous")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    if x.device.type == "cuda" and (x.shape[2], C) != (8, 128):
-        raise ValueError(f"the CUDA kernel takes 8x8 boards and 128 channels, "
-                         f"got S={x.shape[2]} C={C}")
     return L
 
 
 @functools.cache
-def bf16_conv_function(name: str, symbol: str):
-    """``symbol`` of ``csrc/<name>.cu`` (built on first use), declared as a
-    bf16 conv: (in, resid, out, w, bias, B, is_conv1, stream). Resolved once."""
-    fn = getattr(build.load(name), symbol)
+def bf16_conv_function(name: str, symbol: str, shape: tuple):
+    """``symbol`` of ``csrc/<name>.cu`` at ``shape`` (S, C) (built on first
+    use), declared as a bf16 conv: (in, resid, out, w, bias, B, is_conv1,
+    stream). Resolved once a shape."""
+    fn = getattr(build.load(name, shape), symbol)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p] * 5 + [i] * 2 + [p]
     fn.restype = i
@@ -174,8 +171,8 @@ def trunk_matmul9(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch
     check_bf16_args(x, w, bias, _hwio)
     if x.device.type == "cpu":
         return trunk_matmul9_plain(x, w, bias)
-    return launch_bf16_trunk(trunk_matmul9, bf16_conv_function("trunk_matmul9", "trunk_m9_conv"),
-                             x, w, bias)
+    return launch_bf16_trunk(trunk_matmul9, bf16_conv_function(
+        "trunk_matmul9", "trunk_m9_conv", build.trunk_shape(x)), x, w, bias)
 
 
 trunk_matmul9.launches = 0
@@ -192,4 +189,5 @@ def conv_matmul9(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if h.device.type == "cpu":
         return conv_plain(h, w, bias, resid)
     return launch_bf16_one_conv(
-        trunk_matmul9, bf16_conv_function("trunk_matmul9", "trunk_m9_conv"), h, w, bias, resid)
+        trunk_matmul9, bf16_conv_function("trunk_matmul9", "trunk_m9_conv", build.trunk_shape(h)),
+        h, w, bias, resid)

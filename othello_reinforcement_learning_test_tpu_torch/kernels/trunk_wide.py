@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import build
 from .trunk_matmul9 import (OFFSETS, bf16_conv_function, check_bf16_args, launch_bf16_one_conv,
                             launch_bf16_trunk, sum_error_bound)
 
@@ -122,15 +123,15 @@ def trunk_wide(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Te
     (B, S, S, C).
 
     On a CUDA tensor this launches the hand-written kernel (one launch per
-    conv, each counted in ``trunk_wide.launches``; 8x8 boards and 128
-    channels only) or raises; the plain version runs only for a tensor on
-    the CPU.
+    conv, each counted in ``trunk_wide.launches``; the shapes of
+    :func:`~.build.check_trunk_shape`) or raises; the plain version runs
+    only for a tensor on the CPU.
     """
     check_bf16_args(x, w, bias, _wide)
     if x.device.type == "cpu":
         return trunk_wide_plain(x, w, bias)
-    return launch_bf16_trunk(trunk_wide, bf16_conv_function("trunk_wide", "trunk_wide_conv"),
-                             x, w, bias)
+    return launch_bf16_trunk(trunk_wide, bf16_conv_function(
+        "trunk_wide", "trunk_wide_conv", build.trunk_shape(x)), x, w, bias)
 
 
 trunk_wide.launches = 0
@@ -147,4 +148,5 @@ def conv_wide(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if h.device.type == "cpu":
         return conv_wide_plain(h, w, bias, resid)
     return launch_bf16_one_conv(
-        trunk_wide, bf16_conv_function("trunk_wide", "trunk_wide_conv"), h, w, bias, resid)
+        trunk_wide, bf16_conv_function("trunk_wide", "trunk_wide_conv", build.trunk_shape(h)),
+        h, w, bias, resid)

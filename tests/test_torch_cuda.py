@@ -28,6 +28,12 @@ Without a card every test skips. Tolerances:
   tap's product (``trunk_wide.conv_bound``): the tensor cores sum each
   tap's f32 dot in their own order, and an ulp of f32 there can move the
   product's bf16 rounding by one ulp.
+
+The same bars hold every trunk at other board sides and widths (6x6 with 64
+channels, 8x8 with 32, 4x4 with 16; ``matmul9``, ``int8_dx3`` and
+``int8_dxcat`` also at widths that are no whole k32 step or whose weight
+rows are below 128 bytes); a shape outside the set the kernels take is
+refused before a launch.
 """
 
 import numpy as np
@@ -213,10 +219,14 @@ def test_trunk_int8_matches_plain(fused_int8, batch, stage_bf16):
 
 @pytest.mark.cuda
 def test_trunk_int8_refuses_other_shapes(fused_int8):
-    x = torch.zeros((4, 6, 6, 128), dtype=torch.bfloat16, device="cuda")
-    args = (fused_int8.trunk_w, fused_int8.trunk_scale, fused_int8.trunk_bias)
+    """256 channels (a layer's int8 weights, 9 x 256^2 bytes, do not fit one
+    CTA): refused before any launch, naming the shapes the kernels take."""
+    C = 256
+    x = torch.zeros((4, 8, 8, C), dtype=torch.bfloat16, device="cuda")
+    args = (torch.zeros((2, 9, C, C), dtype=torch.int8, device="cuda"),
+            torch.ones((2, C), device="cuda"), torch.zeros((2, C), device="cuda"))
     before = trunk_int8.launches
-    with pytest.raises(ValueError, match="8x8"):
+    with pytest.raises(ValueError, match="multiples of 16 from 16 to 128"):
         trunk_int8(x, *args)
     assert trunk_int8.launches == before
 
@@ -427,3 +437,148 @@ def test_wide_fused_inference_matches_plain_trunk(fused_wide):
                                                   fused_wide.trunk_bias))
     torch.testing.assert_close(lp.exp(), lp_p.exp(), rtol=0, atol=0.03)
     torch.testing.assert_close(v, v_p, rtol=0, atol=0.05)
+
+
+# -- other board sides and widths ---------------------------------------------
+
+# (board side, channels) every trunk is checked at, and the widths whose
+# K (16, 48, 80, 112: not a whole k32 step), weight panels (below 128-byte
+# rows) or one-launch split differ, for the three bodies' trunks
+MAIN_SHAPES = [(6, 64), (8, 32), (4, 16)]
+ODD_SHAPES = [(6, 48), (4, 80), (8, 96), (6, 112), (4, 128), (8, 16)]
+BODY_TRUNKS = ("matmul9", "int8_dx3", "int8_dxcat")
+ALL_TRUNKS = ("matmul9", "wide", "int8", "int8_bf16", "int8_m9", "int8_patch", "int8_flat",
+              "int8_dx3", "int8_dxcat")
+SHAPE_CASES = [(v, s, c) for v in ALL_TRUNKS for s, c in MAIN_SHAPES] \
+    + [(v, s, c) for v in BODY_TRUNKS for s, c in ODD_SHAPES]
+WRAPPERS = {"matmul9": trunk_matmul9, "wide": trunk_wide, "int8": trunk_int8,
+            "int8_bf16": trunk_int8, "int8_dx3": trunk_int8_dx3, **{
+                v: k for v, (k, _) in INT8_KERNELS.items()}}
+
+
+@pytest.fixture(scope="module")
+def shaped():
+    """(variant, S, C) -> FusedInference of a 2-block network at that shape
+    (weights from a numpy seed: the trainer's initial ones for the bf16
+    trunks, He-normal for the int8), every library these tests use built
+    first, one nvcc each, all at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from othello_reinforcement_learning_test_tpu_torch.kernels import build
+
+    jobs = sorted({(WRAPPERS[v].__name__, (s, c)) for v, s, c in SHAPE_CASES})
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(lambda job: build.build(*job), jobs))
+    cache = {}
+
+    def get(variant, size, channels):
+        if (variant, size, channels) not in cache:
+            init = init_train_variables if variant in ("matmul9", "wide") else init_numpy_variables
+            m = OthelloResNet(2, channels, size)
+            m.load_state_dict(from_jax_variables(init(2, channels, seed=size + channels,
+                                                      board_size=size)))
+            cache[variant, size, channels] = FusedInference(m.cuda().eval(), variant=variant)
+        return cache[variant, size, channels]
+    return get
+
+
+def shaped_input(batch: int, size: int, channels: int, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    h = np.abs(rng.standard_normal((batch, size, size, channels))) \
+        * rng.random((batch, 1, 1, 1)) * 2
+    return torch.from_numpy(h.astype(np.float32)).to(torch.bfloat16).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [64, 24, 1, 200])  # 200: more games than SMs
+@pytest.mark.parametrize("variant,size,channels", SHAPE_CASES)
+def test_trunks_at_other_shapes_match_plain(shaped, variant, size, channels, batch):
+    """Each trunk at other board sides and widths against its plain version:
+    the int8 ones bit for bit; the bf16 ones equal to their convs launched
+    one by one, each conv within the bar of the 8x8 tests above. Launches
+    L a forward (int8_dxcat: 1)."""
+    fused = shaped(variant, size, channels)
+    kernel = WRAPPERS[variant]
+    x = shaped_input(batch, size, channels, batch + size + channels)
+    w, b = fused.trunk_w, fused.trunk_bias
+    before = kernel.launches
+    if variant in ("matmul9", "wide"):
+        conv, conv_ref = (conv_matmul9, conv_plain) if variant == "matmul9" \
+            else (conv_wide, conv_wide_plain)
+        out = kernel(x, w, b)
+        assert kernel.launches == before + 4
+        chain = x
+        for i in range(0, 4, 2):
+            y = conv(chain, w[i], b[i])
+            chain = conv(y, w[i + 1], b[i + 1], resid=chain)
+        assert torch.equal(out, chain)
+        h = x
+        for i in range(4):  # every conv on the plain chain's own inputs
+            resid, src = (h, y) if i % 2 else (None, h)
+            want = conv_ref(src, w[i], b[i], resid)
+            got = conv(src, w[i], b[i], resid)
+            if variant == "matmul9":
+                bound = 1e-5 + 1.6e-2 * want.float().abs() + sum_error_bound(src, w[i], b[i])
+            else:
+                bound = conv_bound(src, w[i], b[i], want)
+            assert bool(((got.float() - want.float()).abs() <= bound).all()), (i, batch)
+            h, y = (want, y) if i % 2 else (h, want)
+    else:
+        args = (w, fused.trunk_scale, b)
+        kw = {"stage_bf16": True} if variant == "int8_bf16" else {}
+        out = kernel(x, *args, **kw)
+        assert kernel.launches == before + LAUNCHES_PER_FORWARD.get(variant, 4)
+        plain = trunk_int8_plain if variant in ("int8", "int8_bf16") else (
+            trunk_int8_dx3_plain if variant == "int8_dx3" else INT8_KERNELS[variant][1])
+        assert torch.equal(out, plain(x, *args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ALL_TRUNKS)
+def test_fused_inference_at_6x6_matches_plain_trunk(shaped, variant):
+    """The debug_6x6 width (64 channels) through FusedInference: the int8
+    trunks equal to the plain trunk's forward, the bf16 ones within the
+    JAX package's bar (probs 0.03, value 0.05)."""
+    fused = shaped(variant, 6, 64)
+    x = torch.from_numpy(np.random.default_rng(6).integers(0, 2, (64, 6, 6, 3))
+                         .astype(np.float32)).cuda()
+    lp, v = fused(x)
+    plain = {"matmul9": trunk_matmul9_plain, "wide": trunk_wide_plain}
+    h = fused.stem(x)
+    if variant in plain:
+        lp_p, v_p = fused.heads(plain[variant](h, fused.trunk_w, fused.trunk_bias))
+        torch.testing.assert_close(lp.exp(), lp_p.exp(), rtol=0, atol=0.03)
+        torch.testing.assert_close(v, v_p, rtol=0, atol=0.05)
+    else:
+        kw = {"stage_bf16": True} if variant == "int8_bf16" else {}
+        plain = trunk_int8_plain if variant in ("int8", "int8_bf16") else (
+            trunk_int8_dx3_plain if variant == "int8_dx3" else INT8_KERNELS[variant][1])
+        lp_p, v_p = fused.heads(plain(h, fused.trunk_w, fused.trunk_scale, fused.trunk_bias,
+                                      **kw))
+        assert torch.equal(lp, lp_p) and torch.equal(v, v_p)
+    assert lp.shape == (64, 37) and v.shape == (64, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ALL_TRUNKS)
+@pytest.mark.parametrize("size,channels", [(8, 256), (5, 64), (6, 40)])
+def test_trunks_refuse_other_shapes_before_a_launch(variant, size, channels):
+    """Shapes outside the set: a ValueError naming it, no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    C, kernel = channels, WRAPPERS[variant]
+    x = torch.zeros((4, size, size, C), dtype=torch.bfloat16, device="cuda")
+    b = torch.zeros((2, C), device="cuda")
+    if variant in ("matmul9", "wide"):
+        tail = (3, 3, C, C) if variant == "matmul9" else (C, 9 * C)
+        args = (torch.zeros((2, *tail), dtype=torch.bfloat16, device="cuda"), b)
+    else:
+        args = (torch.zeros((2, 9, C, C), dtype=torch.int8, device="cuda"),
+                torch.ones((2, C), device="cuda"), b)
+    before = kernel.launches
+    with pytest.raises(ValueError, match="board sides 4, 6, 8 and channel counts"):
+        kernel(x, *args)
+    assert kernel.launches == before
+
