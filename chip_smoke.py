@@ -12,7 +12,7 @@ each as they finish:
                  ``trunk_int8_m9``, ``trunk_int8_patch``,
                  ``trunk_int8_flat``, ``trunk_int8_dxcat``) built from
                  ``csrc/`` with nvcc, the trunks at 8x8 boards and 128
-                 channels, and beside them the 14 libraries of phase
+                 channels, and beside them the 30 libraries of phase
                  ``shapes`` (each trunk source is a template on the board
                  side and width, one library a shape), all in parallel;
                  each with its seconds; ptxas registers and
@@ -218,7 +218,10 @@ each as they finish:
                  ``trunk_int8`` with both ``stage_bf16`` settings),
                  ``matmul9``, ``int8_dx3`` and ``int8_dxcat`` also at 8x8
                  with 32 (``parity_4x32.yaml``'s 4x32) and 4x4 with 16
-                 (2x16), at B=64, 24 and 1, each to its 8x8 bar: the int8
+                 (2x16), at B=64, 24 and 1; all eight also at 8x8 with
+                 256 channels (weights streamed through shared memory) and
+                 6x6 with 40 (run at 48 with zero channels), 2 blocks each,
+                 at B=1024, 64 and 1; each to its 8x8 bar: the int8
                  trunks bit for bit and their forward equal to the plain
                  trunk's; the bf16 ones equal to their convs launched one
                  by one, each conv within the bf16 default plus
@@ -238,7 +241,14 @@ each as they finish:
                  --repeats 1``, its JSON line (launches 10 x forwards); and
                  each variant's ms a forward at B=1024, 6x6, 64 channels
                  (wall by CUDA events, device by torch.profiler), beside
-                 its bounds (the work of 36 positions a game);
+                 its bounds (the work of 36 positions a game). Then the
+                 JAX bench's wide network, ``bench --mode mcts --filters
+                 256 --blocks 10 --net-variant int8_dx3 --batch 256
+                 --repeats 1`` (launches 20 x forwards), and each
+                 variant's ms a forward at 8x8 x 256, B=1024, 20 convs,
+                 beside its operations bound, the int8 f32 bytes floor and
+                 the bf16 ones' cuDNN tower; ``int8_dxcat`` also at B=64
+                 and 40;
 10. profile      one ply's search at B=1024 under torch.profiler: wall
                  time, device-busy time and idle share, time by kernel;
 11. timing       the eight trunk kernels and their plain versions at B=1024
@@ -256,7 +266,8 @@ each as they finish:
                  bit-equal); the bounds, launches per forward.
 
 Then one ``{"kernels": [...]}`` JSON line (each kernel with the shapes it
-was checked at: [board side, channels], ``random_step`` its board sides),
+was checked at: [board side, channels], ``random_step`` its board sides;
+each trunk's ms a forward at 8x8 x 256 beside that shape's bound),
 the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero; without CUDA it exits non-zero before any phase.
@@ -372,8 +383,9 @@ RANDOM_GAMES = 4194304  # bench.py's random-mode batch with the kernel
 INT8_BATCHES = (GAMES, 1040, 267, 256, 24, 3, 1)
 # the profiler names of the int8 conv body's launches and the pre-pass,
 # and of the one-launch trunk (int8_dxcat)
-INT8_DEVICE_NAMES = ("int8_conv_kernel", "prepass_kernel")
-TRUNK_DEVICE_NAMES = ("int8_trunk_kernel",)
+INT8_DEVICE_NAMES = ("int8_conv_kernel", "int8_conv_stream_kernel", "prepass_kernel")
+TRUNK_DEVICE_NAMES = ("int8_trunk_kernel", "int8_trunk_stream_kernel")
+BF16_DEVICE_NAMES = ("bf16_conv_kernel", "bf16_conv_stream_kernel")
 # the gated iteration's batches: self-play (64 games), the gate match (40)
 GATE_BATCHES = (64, 40)
 DXCAT_REPEATS = 200
@@ -479,19 +491,26 @@ FRONT_HINT_EVERY, FRONT_UNDO_AT, FRONT_MAX_AT = 10, 12, 21
 STATIC_FILES = ("/", "/css/style.css", "/js/api.js", "/js/board.js", "/js/ui.js", "/js/main.js")
 # phase shapes: the trunks at the board sides and widths the shipped configs
 # use besides 10x128 at 8x8, each network's depth its config's: (S, C) ->
-# (blocks, the trunks checked there). configs/debug_6x6.yaml's 5x64 at 6x6
-# takes all eight (int8 with both stage_bf16 settings); parity_4x32.yaml's
-# 4x32 at 8x8 and a 2x16 network at 4x4 (test.yaml's width) the three
-# bodies' trunks
+# (blocks, the trunks checked there, the batches). configs/debug_6x6.yaml's
+# 5x64 at 6x6 takes all eight (int8 with both stage_bf16 settings);
+# parity_4x32.yaml's 4x32 at 8x8 and a 2x16 network at 4x4 (test.yaml's
+# width) the three bodies' trunks; all eight also past 128 channels, where
+# the weights are streamed (8x8 x 256, the JAX bench's --filters 256), and
+# at a width that is no multiple of 16 (6x6 x 40, run at 48 with zero
+# channels), both cut to 2 blocks, at B = 1024, 64, 1
 SHAPE_VARIANTS = ("matmul9", "wide", "int8", "int8_bf16", "int8_m9", "int8_patch",
                   "int8_flat", "int8_dx3", "int8_dxcat")
-SHAPE_NETS = {(6, 64): (5, SHAPE_VARIANTS), (8, 32): (4, ("matmul9", "int8_dx3", "int8_dxcat")),
-              (4, 16): (2, ("matmul9", "int8_dx3", "int8_dxcat"))}
 SHAPE_BATCHES = (64, 24, 1)
+WIDE_BATCHES = (1024, 64, 1)
+SHAPE_NETS = {(6, 64): (5, SHAPE_VARIANTS, SHAPE_BATCHES),
+              (8, 32): (4, ("matmul9", "int8_dx3", "int8_dxcat"), SHAPE_BATCHES),
+              (4, 16): (2, ("matmul9", "int8_dx3", "int8_dxcat"), SHAPE_BATCHES),
+              (8, 256): (2, SHAPE_VARIANTS, WIDE_BATCHES),
+              (6, 40): (2, SHAPE_VARIANTS, WIDE_BATCHES)}
 # each kernel's library at every shape phase shapes runs, built in the build
-# phase beside the 8x8/128 ones
-SHAPE_BUILDS = sorted({(VARIANT_KERNEL[v].__name__, shape)
-                       for shape, (_, variants) in SHAPE_NETS.items() for v in variants})
+# phase beside the 8x8/128 ones (6x6 x 40 at its library's 48)
+SHAPE_BUILDS = sorted({(VARIANT_KERNEL[v].__name__, (shape[0], build.padded_channels(shape[1])))
+                       for shape, (_, variants, _) in SHAPE_NETS.items() for v in variants})
 SHAPES_SCRATCH = build.BUILD_DIR / "chip_smoke_shapes"  # git-ignored
 # configs/debug_6x6.yaml (6x6, 5x64) through int8_dx3, cut to one iteration
 # of 64 games in one batch at its own 10 simulations, 2 SGD steps at its
@@ -508,6 +527,10 @@ DEBUG_6X6_GATE = {"enabled": True, "games": 8, "interval": 1, "win_threshold": 0
                   "num_simulations": None, "opening_random_plies": 4}  # None: the eval count
 SHAPES_BENCH = ["--mode", "mcts", "--size", "6", "--filters", "64", "--blocks", "5",
                 "--net-variant", "int8_dx3", "--batch", "256", "--repeats", "1"]
+# the JAX bench's wide network through the streamed int8_dx3 trunk
+WIDE_BENCH = ["--mode", "mcts", "--filters", "256", "--blocks", "10", "--net-variant",
+              "int8_dx3", "--batch", "256", "--repeats", "1"]
+WIDE_FILTERS = 256  # the timing rows past 128 channels: 8x8, 10 blocks, B = GAMES
 
 
 def launches_per_forward(kernel, layers: int = 2 * NUM_BLOCKS) -> int:
@@ -1967,16 +1990,16 @@ def int8_plain(variant: str):
 
 def check_shape_kernels(dev) -> tuple:
     """Every trunk of SHAPE_NETS at its board side and width against its
-    plain version, at SHAPE_BATCHES, on stem outputs of real positions: the
+    plain version, at that entry's batches, on stem outputs of real positions: the
     int8 ones bit for bit, the forward equal to the plain trunk's; the bf16
     ones equal to their convs launched one by one, each conv within the bar
     of their 8x8 checks, the forward (trainer's initial weights) within
     probs 0.03 / value 0.05. Launches L a forward (int8_dxcat: 1). Returns
     ({kernel name: (shapes, largest difference)}, the (6, 64) networks)."""
     checked, nets = {}, {}
-    for (S, C), (blocks, variants) in SHAPE_NETS.items():
+    for (S, C), (blocks, variants, batches) in SHAPE_NETS.items():
         eng = get_engine(S, "reference")
-        feats = eng.features(random_positions(eng, max(SHAPE_BATCHES), S * S // 3,
+        feats = eng.features(random_positions(eng, max(batches), S * S // 3,
                                               np.random.default_rng(SEED + S), dev))
         layers = 2 * blocks
         models = {"he_normal": shape_model(S, C, blocks, init_numpy_variables, dev),
@@ -1997,7 +2020,7 @@ def check_shape_kernels(dev) -> tuple:
                 check(launched == layers,
                       f"{variant} launched {launched} times a forward at {S}x{S}x{C}")
                 err = check_bf16_convs(kernel.__name__, kernel, args[3], *args[:3], fused, feats,
-                                       f"flax_init, {S}x{S}, {blocks}x{C}", SHAPE_BATCHES)
+                                       f"flax_init, {S}x{S}, {blocks}x{C}", batches)
                 lp_k, v_k = fused(feats)
                 lp_p, v_p = fused.heads(args[3](fused.stem(feats), w, b))
                 dp = float((lp_k.exp() - lp_p.exp()).abs().max())
@@ -2009,7 +2032,7 @@ def check_shape_kernels(dev) -> tuple:
                 plain = int8_plain(variant)
                 args = (fused.trunk_w, fused.trunk_scale, fused.trunk_bias, fused.block_games)
                 err = 0.0
-                for batch in SHAPE_BATCHES:
+                for batch in batches:
                     h = fused.stem(feats[:batch])
                     before = kernel.launches
                     out_k = kernel(h, *args, **kw)
@@ -2147,11 +2170,12 @@ def cli_train_at(cut: dict, name: str, kernel, dev) -> dict:
     return fields
 
 
-def shapes_phase(dev) -> dict:
+def shapes_phase(dev) -> tuple:
     """The trunks at the other shapes the JAX trunks run (see the module
     docstring): the kernel checks, the debug_6x6 iteration through int8_dx3
     and gated through int8_dxcat, the bench at 6x6, the timing at (6, 64),
-    B=1024. Returns {kernel name: the shapes it was checked at}."""
+    B=1024, then past 128 channels (``wide_phase``). Returns ({kernel name:
+    the shapes it was checked at}, ``wide_phase``'s rows)."""
     t0 = time.perf_counter()
     checked, nets = check_shape_kernels(dev)
     check_s = time.perf_counter() - t0
@@ -2217,10 +2241,82 @@ def shapes_phase(dev) -> dict:
         if not bf16:
             timing[variant]["bytes_floor_ms"] = int8_bytes_floor_ms(GAMES, layers, 64, size=6)
     phase("shapes", timing=timing, batch=GAMES, size=6, channels=64, layers=layers)
+    wide = wide_phase(dev)
     phase("shapes", kernels_checked={k: v[0] for k, v in checked.items()},
           max_abs_err={k: v[1] for k, v in checked.items()},
           kernel_check_s=round(check_s, 3), seconds=round(time.perf_counter() - t0, 3))
-    return {k: v[0] for k, v in checked.items()}
+    return {k: v[0] for k, v in checked.items()}, wide
+
+
+def wide_phase(dev) -> dict:
+    """Past 128 channels, where the kernels stream a layer's weights: the
+    JAX bench's wide network, ``bench --mode mcts --filters 256 --blocks 10
+    --net-variant int8_dx3`` (int8_dx3 launched 20 x forwards), then each
+    trunk's ms a forward at 8x8 x 256, B=1024, 20 convs (wall by CUDA
+    events, device by torch.profiler) beside its bounds, the int8 ones'
+    f32 bytes floor and, for the bf16 ones, the cuDNN tower;
+    ``int8_dxcat`` also at its gated batches. Returns {kernel name: its
+    row}."""
+    forwards = [0]
+    trunk = FusedInference.trunk
+
+    def counted_trunk(self, h):
+        forwards[0] += 1
+        return trunk(self, h)
+
+    for k in set(VARIANT_KERNEL.values()):
+        k.launches = 0
+    FusedInference.trunk = counted_trunk
+    try:
+        line = bench.run(WIDE_BENCH)
+    finally:
+        FusedInference.trunk = trunk
+    launches = trunk_int8_dx3.launches
+    phase("shapes", argv="bench " + " ".join(WIDE_BENCH), line=line, forwards=forwards[0],
+          trunk_int8_dx3_launches=launches)
+    check(launches > 0 and launches == 2 * NUM_BLOCKS * forwards[0],
+          f"bench at 10x256: int8_dx3 launches {launches} == 20 x forwards {forwards[0]}")
+    check(line["model"] == f"{NUM_BLOCKS}x{WIDE_FILTERS}" and line["net_variant"] == "int8_dx3"
+          and line["value"] > 0, "bench at 10x256 through int8_dx3")
+
+    eng = get_engine(8, "reference")
+    feats = eng.features(random_positions(eng, GAMES, 20, np.random.default_rng(SEED), dev))
+    layers, C = 2 * NUM_BLOCKS, WIDE_FILTERS
+    models = {init.__name__: shape_model(8, C, NUM_BLOCKS, init, dev)
+              for init in (init_numpy_variables, init_train_variables)}
+    bound = {bf16: trunk_bound_ms(GAMES, layers, C, bf16) for bf16 in (False, True)}
+    rows = {}
+    for variant in SHAPE_VARIANTS:
+        kernel = VARIANT_KERNEL[variant]
+        bf16 = variant in ("matmul9", "wide")
+        fused = FusedInference(models["init_train_variables" if bf16 else "init_numpy_variables"],
+                               variant=variant)
+        h = fused.stem(feats)
+        if bf16:
+            args, kw = (fused.trunk_w, fused.trunk_bias), {}
+        else:
+            args = (fused.trunk_w, fused.trunk_scale, fused.trunk_bias, fused.block_games)
+            kw = {"stage_bf16": True} if variant == "int8_bf16" else {}
+        names = (BF16_DEVICE_NAMES if bf16 else TRUNK_DEVICE_NAMES
+                 if kernel is trunk_int8_dxcat else INT8_DEVICE_NAMES)
+        row = {"kernel": kernel.__name__, "ms": time_ms(lambda: kernel(h, *args, **kw), reps=20),
+               **trunk_device_ms(lambda: kernel(h, *args, **kw), names),
+               "bound_ms": bound[bf16][0], "bound_by": bound[bf16][1]}
+        if bf16:
+            w_oihw = [(hwio(wl) if variant == "wide" else wl)[..., :C, :C].permute(3, 2, 0, 1)
+                      .contiguous(memory_format=torch.channels_last) for wl in fused.trunk_w]
+            b_tower = fused.trunk_bias[:, :C].to(torch.bfloat16)
+            row["cudnn_tower_ms"] = time_ms(lambda: cudnn_tower(h, w_oihw, b_tower), reps=20)
+        else:
+            row["bytes_floor_ms"] = int8_bytes_floor_ms(GAMES, layers, C)
+        if kernel is trunk_int8_dxcat:
+            row["path_batches"] = {batch: {
+                "ms": time_ms(lambda: kernel(h[:batch].contiguous(), *args), reps=50),
+                "bound_ms": trunk_bound_ms(batch, layers, C)[0],
+                "bytes_floor_ms": int8_bytes_floor_ms(batch, layers, C)} for batch in GATE_BATCHES}
+        rows[variant] = row
+    phase("shapes", timing=rows, batch=GAMES, size=8, channels=C, layers=layers)
+    return rows
 
 
 def bench_phase() -> tuple:
@@ -2484,7 +2580,7 @@ def main() -> int:
     frontends_phase(engine, dev)
     step_launches, int8_launches = bench_phase()
     variant_launches = benchmark_model_phase()
-    shapes_checked = shapes_phase(dev)
+    shapes_checked, wide_rows = shapes_phase(dev)
 
     # timing at the main paths' shape (B=1024)
     h = fused.stem(feats)
@@ -2649,10 +2745,15 @@ def main() -> int:
             "max_abs_err": variants[variant][0], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     # the shapes each kernel was checked at on the card in this run
-    # (random_step: the board sides)
+    # (random_step: the board sides), and each trunk's time past 128
+    # channels (8x8 x 256, B=1024) beside that shape's bound
     for k in kernels:
         k["shapes"] = ([[8, NUM_FILTERS]] + shapes_checked.get(k["name"], [])
                        if k["name"] != "random_step" else [[8], [6], [4]])
+    for variant, row in wide_rows.items():
+        k = next(k for k in kernels if k["name"] == row["kernel"])
+        key = "ms_8x8x256" if variant != "int8_bf16" else "ms_8x8x256_stage_bf16"
+        k[key], k["bound_ms_8x8x256"] = row["ms"], row["bound_ms"]
     phase("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -2,7 +2,7 @@
 // trunk_wide.cu), for Hopper (sm_90a): one 3x3 conv of S x S boards, C
 // bf16 channels in and out, f32 sums, with the bias, the residual add (conv
 // 1 of a block), ReLU and the bf16 rounding fused. A template on the board
-// side S (4, 6 or 8) and the channel count C (a multiple of 16 up to 128),
+// side S (4, 6 or 8) and the channel count C (a multiple of 16 up to 256),
 // instantiated once in a library built for that shape (kernels/build.py
 // passes TRUNK_S and TRUNK_C); 8x8 boards and C = 128 below unless stated.
 //
@@ -63,6 +63,27 @@
 // - No split-K and no atomics: every output's summation order is fixed,
 //   whatever B is and whichever CTA computes it.
 //
+// Above 128 channels (bf16_conv_stream_kernel; C <= 128 compiles to the
+// kernel below as before) the CTA's nine taps, 9 x C x NH x 2 bytes
+// (294,912 at C = 256, NH = 64), do not fit beside two game tiles of
+// 51,712 B, so they are streamed:
+// - A ring of SLOTS one-tap tiles ([C_in][NH C_out], 32,768 B at C = 256;
+//   three beside the game tiles and residuals, 219,264 B), each loaded by
+//   TMA as the resident taps are, by a loader warp (the CTA's ninth) that
+//   waits for a slot's release and refills it.
+// - The two warpgroups keep their alternate games and both read every
+//   tile: one weight pass serves two games, so a conv reads B / 2 x 9 x C x
+//   C x 2 bytes of weights from L2 (302 MB at B = 1024, C = 256). A slot is
+//   released when both warpgroups' products that read it are done (an
+//   mbarrier of 256 arrivals, after wgmma.wait_group 1); a warpgroup
+//   without a game in the last pass still takes and releases the tiles.
+// - A game's activations are loaded into its tile when its products start,
+//   not during the previous game's (16 loads a thread at C = 256 would not
+//   fit beside the accumulators); the other warpgroup's products overlap
+//   the load as far as the ring lets it run ahead.
+// - The sums keep their order: wide adds each tap's rounded product in
+//   OFFSETS order; matmul9 chains all 9C / 16 k-steps on the bias.
+//
 // The host side (sm90_common.cuh) sets the shared-memory attribute and
 // reads the SM count once per device, and encodes each layer's weight map
 // once per pointer (the map holds only an address and shapes).
@@ -118,8 +139,7 @@ struct Shape {
   static constexpr int SMEM_BYTES = 1024 + W_BYTES + CONSUMERS * (TILE_BYTES + RES_BYTES) + 8;
 
   static_assert(S == 4 || S == 6 || S == 8, "board side 4, 6 or 8");
-  static_assert(C % 16 == 0 && C >= 16 && C <= 128, "channels a multiple of 16 up to 128");
-  static_assert(SMEM_BYTES <= 232448, "fits one block's shared memory");
+  static_assert(C % 16 == 0 && C >= 16 && C <= 256, "channels a multiple of 16 up to 256");
 
   // the padded tile's position of board position p
   static __device__ __forceinline__ int tile_pos(int p) {
@@ -184,6 +204,70 @@ __device__ __forceinline__ void add_tap(float (&acc)[NA], float (&d)[NA]) {
     acc[i] = __fadd_rn(acc[i], v.x);
     acc[i + 1] = __fadd_rn(acc[i + 1], v.y);
   }
+}
+
+// The epilogue of game g through its tile, so that it reads the residual
+// and writes out in whole rows of the CTA's NH channels: the sums as f32
+// [row][NH + 8] (rows padded for conflict-free 8-byte writes), then 16-byte
+// pieces: position piece / (NH / 8), channels 8 * (piece % (NH / 8)) ...,
+// from the position's accumulator row; the residual (conv 1) from res,
+// where cp.async brought it. Leaves the tile to the warpgroup. The streamed
+// kernel's; bf16_conv_kernel takes the same steps inline.
+template <class G>
+__device__ __forceinline__ void store_game(const float (&acc)[G::NA], uint32_t stage, uint32_t res,
+                                           int is_conv1, __nv_bfloat16* out, int g, int n_base,
+                                           int wg, int wl, int lane, int t) {
+  constexpr int P = G::P, C = G::C, NH = G::NH, NPC = NH / 8;
+  wg_sync(wg);  // every warp's products are done with the tile
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int jn = 0; jn < NH / 8; ++jn)
+      asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(
+                       stage + ((wl * 16 + h * 8 + (lane >> 2)) * G::EP_STRIDE + jn * 8 +
+                                2 * (lane & 3)) * 4),
+                   "f"(acc[4 * jn + 2 * h]), "f"(acc[4 * jn + 2 * h + 1])
+                   : "memory");
+  wg_sync(wg);
+  if (is_conv1) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < G::EP_PIECES; ++i) {
+    const int piece = t + 128 * i, p = piece / NPC, c = (piece % NPC) * 8;
+    if (G::RES_PIECES % 128 != 0 && piece >= G::RES_PIECES) continue;
+    const int row = G::acc_row(p);
+    float v[8];
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+                 : "r"(stage + (row * G::EP_STRIDE + c) * 4)
+                 : "memory");
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v[4]), "=f"(v[5]), "=f"(v[6]), "=f"(v[7])
+                 : "r"(stage + (row * G::EP_STRIDE + c + 4) * 4)
+                 : "memory");
+    const size_t off = (static_cast<size_t>(g) * P + p) * C + n_base + c;
+    if (is_conv1) {
+      uint32_t rw[4];
+      asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(rw[0]), "=r"(rw[1]), "=r"(rw[2]), "=r"(rw[3])
+                   : "r"(res + piece * 16)
+                   : "memory");
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 rf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rw[k]));
+        v[2 * k] = __fadd_rn(rf.x, v[2 * k]);
+        v[2 * k + 1] = __fadd_rn(rf.y, v[2 * k + 1]);
+      }
+    }
+    uint32_t o[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const __nv_bfloat162 b2 = __floats2bfloat162_rn(v[2 * k] > 0.0f ? v[2 * k] : 0.0f,
+                                                      v[2 * k + 1] > 0.0f ? v[2 * k + 1] : 0.0f);
+      o[k] = *reinterpret_cast<const uint32_t*>(&b2);
+    }
+    *reinterpret_cast<uint4*>(out + off) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+  wg_sync(wg);  // the epilogue is done with the tile
 }
 
 // One 3x3 conv. blockIdx.x picks the NH output channels, blockIdx.y the
@@ -388,12 +472,207 @@ bf16_conv_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16* 
   }
 }
 
+// ---- The streamed path (C > 128) ----
+
+// Its geometry: the body's, the ring of one-tap weight tiles and the loader
+// warp (see the note)
+template <int S_, int C_>
+struct StreamShape : Shape<S_, C_> {
+  using G = Shape<S_, C_>;
+  static constexpr int THREADS = CONSUMERS * 128 + 32;  // the consumers and the loader warp
+  static constexpr int MAX_SLOTS = 8;
+  // + 1024: the ring's alignment; the two game tiles and residuals; the
+  // barriers: full and empty a slot
+  static constexpr int FIXED =
+      1024 + CONSUMERS * (G::TILE_BYTES + G::RES_BYTES) + 2 * MAX_SLOTS * 8;
+  static constexpr int FIT = (232448 - FIXED) / G::W_TAP_BYTES;
+  static constexpr int SLOTS = FIT < MAX_SLOTS ? FIT : MAX_SLOTS;  // 3 at C = 256
+  static constexpr int SMEM_BYTES = FIXED + SLOTS * G::W_TAP_BYTES;
+  static_assert(C_ > 128, "the streamed path: 144 to 256 channels");
+  static_assert(SLOTS >= 2, "a tile in products, one loading");
+  static_assert(SMEM_BYTES <= 232448, "fits one block's shared memory");
+};
+
+// One 3x3 conv above 128 channels: the function and arguments of
+// bf16_conv_kernel, the CTA's taps streamed (see the note). Warps 0-7 are
+// the two warpgroups, warp 8 the loader.
+template <int S, int C, bool ROUND_TAPS, bool WIDE>
+__global__ void __launch_bounds__(StreamShape<S, C>::THREADS, 1)
+bf16_conv_stream_kernel(const __grid_constant__ CUtensorMap wmap,
+                        const __nv_bfloat16* __restrict__ in, const __nv_bfloat16* resid,
+                        __nv_bfloat16* out, const float* __restrict__ bias, int B, int is_conv1) {
+  using G = StreamShape<S, C>;
+  constexpr int P = G::P, NH = G::NH, NA = G::NA, KCH = G::KCH, LOADS = G::LOADS;
+  constexpr int NPC = NH / 8, SLOTS = G::SLOTS;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ws = (smem_u32(smem_raw) + 1023) & ~1023u;         // the weight ring
+  const uint32_t tiles = ws + SLOTS * G::W_TAP_BYTES;                 // the game tiles
+  const uint32_t wfull = tiles + CONSUMERS * (G::TILE_BYTES + G::RES_BYTES);
+  const uint32_t wempty = wfull + SLOTS * 8;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wl = warp & 3, t = tid & 127;
+  const int n_base = blockIdx.x * NH;
+  // the stripe's games blockIdx.y, + gridDim.y, ...: pass p takes its games
+  // 2p (warpgroup 0) and 2p + 1 (warpgroup 1), from one weight pass
+  const int n_games = blockIdx.y < B ? (B - 1 - blockIdx.y) / gridDim.y + 1 : 0;
+  const int passes = (n_games + 1) / 2;
+
+  if (tid == 0) {
+    for (int s = 0; s < SLOTS; ++s) {
+      mbar_init(wfull + s * 8, 1);
+      mbar_init(wempty + s * 8, CONSUMERS * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the barriers' init
+
+  if (wg == CONSUMERS) {
+    // the loader: tap n % 9 of pass n / 9 into slot n % SLOTS, once both
+    // warpgroups released the tile before it there
+    if (lane == 0) {
+      for (int n = 0; n < passes * TAPS; ++n) {
+        const int s = n % SLOTS, tap = n % TAPS;
+        if (n >= SLOTS) mbar_wait_or_trap(wempty + s * 8, (n / SLOTS - 1) & 1);
+        mbar_expect_tx(wfull + s * 8, G::W_TAP_BYTES);
+        tma_load_2d(ws + s * G::W_TAP_BYTES, &wmap, WIDE ? tap * C + n_base : n_base,
+                    WIDE ? 0 : tap * C, wfull + s * 8);
+      }
+    }
+    return;
+  }
+
+  const uint32_t stage = tiles + wg * G::TILE_BYTES;                           // its game tile
+  const uint32_t res = tiles + CONSUMERS * G::TILE_BYTES + wg * G::RES_BYTES;  // its residual
+  zero_halo<G>(stage, t);
+  // thread t stores 16-byte pieces t + 128 * i of a game (see bf16_conv_kernel)
+  uint32_t dst[LOADS];
+#pragma unroll
+  for (int i = 0; i < LOADS; ++i) {
+    const int piece = t + 128 * i;
+    dst[i] = stage + (piece % KCH) * G::CHUNK_BYTES + G::tile_pos(piece / KCH) * 16;
+  }
+  float bias_v[NA / 2];
+#pragma unroll
+  for (int jn = 0; jn < NH / 8; ++jn) {
+    bias_v[2 * jn] = bias[n_base + jn * 8 + 2 * (lane & 3)];
+    bias_v[2 * jn + 1] = bias[n_base + jn * 8 + 2 * (lane & 3) + 1];
+  }
+
+  for (int p = 0; p < passes; ++p) {
+    const bool has = 2 * p + wg < n_games;
+    const int g = blockIdx.y + (2 * p + wg) * gridDim.y;
+    if (has) {
+      if (is_conv1) {  // this game's residual, the pieces this thread's epilogue takes
+#pragma unroll
+        for (int i = 0; i < G::EP_PIECES; ++i) {
+          const int piece = t + 128 * i;
+          if (G::RES_PIECES % 128 == 0 || piece < G::RES_PIECES)
+            asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(res + piece * 16),
+                         "l"(resid + (static_cast<size_t>(g) * P + piece / NPC) * C + n_base +
+                             (piece % NPC) * 8)
+                         : "memory");
+        }
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+      }
+      const uint4* src = reinterpret_cast<const uint4*>(in + static_cast<size_t>(g) * P * C);
+      uint4 v[LOADS];
+#pragma unroll
+      for (int i = 0; i < LOADS; ++i)
+        if (G::PIECES % 128 == 0 || t + 128 * i < G::PIECES) v[i] = __ldg(src + t + 128 * i);
+#pragma unroll
+      for (int i = 0; i < LOADS; ++i)
+        if (G::PIECES % 128 == 0 || t + 128 * i < G::PIECES)
+          asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst[i]), "r"(v[i].x),
+                       "r"(v[i].y), "r"(v[i].z), "r"(v[i].w)
+                       : "memory");
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma's reads
+      wg_sync(wg);
+    }
+
+    float acc[NA];
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[i] = bias_v[(i >> 2) * 2 + (i & 1)];
+    float part[2][NA];  // wide: two taps' products, one in flight while the other is added
+#pragma unroll
+    for (int tap = 0; tap <= TAPS; ++tap) {
+      if (tap < TAPS) {
+        const int n = p * TAPS + tap, s = n % SLOTS;
+        mbar_wait_or_trap(wfull + s * 8, (n / SLOTS) & 1);
+        const uint32_t a = stage + ((tap / 3) * G::PADW + tap % 3) * 16;
+        const uint32_t b = ws + s * G::W_TAP_BYTES;
+        if (has) {
+          if constexpr (ROUND_TAPS) {
+            issue_tap<G>(part[tap & 1], a, b);
+          } else {
+            // the chain of all 9C / 16 steps on the bias, a group a tap
+            fence_operands(acc);
+            asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+            for (int ks = 0; ks < C / 16; ++ks)
+              wgmma_bf16(acc, a_desc<G>(a, ks), b_desc<G>(b, ks), 1);
+            asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          }
+        }
+      }
+      if (tap == 0) continue;
+      if (has) {
+        if (tap < TAPS)
+          asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        else
+          asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        if constexpr (ROUND_TAPS)
+          add_tap(acc, part[(tap - 1) & 1]);  // in OFFSETS order
+        else
+          fence_operands(acc);
+      }
+      mbar_arrive(wempty + ((p * TAPS + tap - 1) % SLOTS) * 8);  // tap - 1's slot
+    }
+    if (!has) continue;
+    store_game<G>(acc, stage, res, is_conv1, out, g, n_base, wg, wl, lane, t);
+    zero_halo<G>(stage, t);  // the staging overwrote the halo
+  }
+}
+
+// One conv launch above 128 channels: launch's arguments
+template <int S, int C, bool ROUND_TAPS, bool WIDE>
+int launch_stream(const void* in, const void* resid, void* out, const void* w, const void* bias,
+                  int B, int is_conv1, void* stream) {
+  using G = StreamShape<S, C>;
+  static HostState host;
+  if (B <= 0) return 0;
+  if ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(w)) & 15)
+    return static_cast<int>(cudaErrorInvalidValue);  // 16-byte loads, TMA
+  auto kernel = bf16_conv_stream_kernel<S, C, ROUND_TAPS, WIDE>;
+  // a box is one tap's C input channels x the CTA's NH output channels, as
+  // the resident kernel's
+  const WeightMap layout = {CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            {WIDE ? 9u * C : C, WIDE ? C : 9u * C},
+                            (WIDE ? 9u * C : C) * 2u,
+                            {G::NH, C},
+                            swizzle_mode(G::SW)};
+  CUtensorMap wmap;
+  int sms = 0;
+  const int rc = prepare_launch(host, reinterpret_cast<const void*>(kernel), G::SMEM_BYTES, w,
+                                layout, &wmap, &sms);
+  if (rc != 0) return rc;
+  constexpr int GR = G::GROUPS;
+  const int stripes = B < sms / GR ? B : (sms / GR > 0 ? sms / GR : 1);
+  kernel<<<dim3(GR, stripes), G::THREADS, G::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      wmap, static_cast<const __nv_bfloat16*>(in), static_cast<const __nv_bfloat16*>(resid),
+      static_cast<__nv_bfloat16*>(out), static_cast<const float*>(bias), B, is_conv1);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // One conv launch. Returns 0, a cudaError_t, or minus a CUresult of the
 // tensor-map encoder.
 template <int S, int C, bool ROUND_TAPS, bool WIDE>
 int launch(const void* in, const void* resid, void* out, const void* w, const void* bias, int B,
            int is_conv1, void* stream) {
+  if constexpr (C > 128) {
+    return launch_stream<S, C, ROUND_TAPS, WIDE>(in, resid, out, w, bias, B, is_conv1, stream);
+  } else {
   using G = Shape<S, C>;
+  static_assert(G::SMEM_BYTES <= 232448, "fits one block's shared memory");
   static HostState host;
   if (B <= 0) return 0;
   if ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(w)) & 15)
@@ -419,6 +698,7 @@ int launch(const void* in, const void* resid, void* out, const void* w, const vo
       wmap, static_cast<const __nv_bfloat16*>(in), static_cast<const __nv_bfloat16*>(resid),
       static_cast<__nv_bfloat16*>(out), static_cast<const float*>(bias), B, is_conv1);
   return static_cast<int>(cudaGetLastError());
+  }
 }
 
 }  // namespace

@@ -5,9 +5,10 @@
 // quantized trunk, with the dequantisation, the bias, the residual add
 // (conv 1 of a block), ReLU and the next layer's per-block amax fused. A
 // template on the board side S (4, 6 or 8) and the channel count C (a
-// multiple of 16 up to 128), instantiated once in a library built for that
+// multiple of 16 up to 256), instantiated once in a library built for that
 // shape (kernels/build.py passes TRUNK_S and TRUNK_C); the notes give S = 8,
-// C = 128. For each block of `bg` games:
+// C = 128, and the streamed path's below them C = 256. For each block of
+// `bg` games:
 //
 //   s_act = max(amax|h| over the block, 1e-8) / 127
 //   q     = clip(rint(h / s_act), -127, 127)          (int8, true division)
@@ -81,6 +82,33 @@
 // The activation scale is a max over a block of bg games that no CTA
 // holds whole, so each conv is one launch and the activations cross device
 // memory in f32 between convs: rint(h / s_act) needs h exactly.
+//
+// Above 128 channels (int8_conv_stream_kernel; C <= 128 compiles to the
+// kernel above, unchanged) a layer's int8 weights, 9 C^2 bytes (589,824 at
+// C = 256), do not fit one CTA, so they are streamed:
+// - A ring of SLOTS weight tiles in shared memory, each one panel (SW bytes
+//   of C_in, 128 at C = 256) of one tap for all C output channels
+//   (32,768 B), loaded by TMA; at C = 256 four slots beside two padded game
+//   tiles (51,712 B) and two f32 staging parts (32,768 B): 216,656 B.
+// - Both consumer warpgroups compute the same game and split its output
+//   channels: consumer 0 the first 128 (m64n128k32, as at C = 128),
+//   consumer 1 the other C - 128 (16 to 128, each a legal s8 wgmma width),
+//   each from its rows of the same tile. A game takes the layer's 9 x
+//   KP / SW tiles in (tap, panel) order: one weight pass a game, so a conv
+//   reads B x 9 C^2 bytes of weights from L2 (604 MB at B = 1024, C = 256,
+//   beside 64 MB of f32 input and output).
+// - A tile is released once both consumers' products that read it are
+//   done (wgmma.wait_group 1 after the next tile's products are issued,
+//   then a 256-thread named barrier); consumer 0's first thread then loads
+//   the tile SLOTS ahead into that slot, so SLOTS - 1 loads are in flight
+//   behind the products.
+// - The int32 sums stay exact: |acc| <= 9 x 256 x 127^2 < 2^31. STAGE_BF16:
+//   a tap's panels accumulate into one of two partial sums from zero, and
+//   the tap is rounded to bf16 and added once its last panel is done, in
+//   OFFSETS order, while the next tap's products run.
+// - The producer stages a game in parts of two board rows (16 KB at S = 8,
+//   C = 256), so that a thread keeps at most 8 float4s, and quantizes into
+//   two padded tiles (the game in products and the next).
 
 #pragma once
 
@@ -347,11 +375,6 @@ __device__ __forceinline__ void load_residual(float2 (&res)[NR], const float* re
   }
 }
 
-// mbarrier arrive (release) by this thread
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
 // One bulk copy (TMA, no tensor map) of `bytes` contiguous bytes into
 // shared memory, completing on the barrier
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
@@ -523,6 +546,289 @@ int8_conv_kernel(const __grid_constant__ CUtensorMap wmap, const float* __restri
   }
 }
 
+// ---- The streamed path (C > 128) ----
+
+// Its geometry: the body's, staged in parts of two board rows (the body's
+// "half" names a part here, so that read_half and quantize_into serve
+// both), the consumers' channel split and the weight ring of tiles of
+// ROWS_ output channels (all C, or a CTA's share in int8_trunk_sm90.cuh's
+// split).
+template <int S_, int C_, int ROWS_ = C_>
+struct StreamShape : Shape<S_, C_> {
+  using G = Shape<S_, C_>;
+  static constexpr int NPART = S_ / 2;                      // staging parts a game: 4 at S = 8
+  static constexpr int PART_POS = G::P / NPART;             // positions a part: two board rows
+  static constexpr int HALF_BYTES = PART_POS * C_ * 4;      // a part in f32: 16,384
+  static constexpr int HALF_F4 = HALF_BYTES / 16;           // its float4s
+  static constexpr int LOADS = (HALF_F4 + 127) / 128;       // a producer thread's: 8
+  static constexpr int N0 = 128, N1 = C_ - 128;             // consumer 0's and 1's channels
+  static constexpr int TILES = 2;                           // padded game tiles
+  static constexpr int ROWS = ROWS_;                        // output channels a tile
+  static constexpr int SLOT_BYTES = ROWS_ * G::SW;          // a weight tile: 32,768
+  static constexpr int STEPS = TAPS * G::PANELS;            // weight tiles a game: 18
+  static constexpr int MAX_SLOTS = 8;
+  // + 1024: the ring's alignment; the game tiles, two staging parts; the
+  // barriers: full and empty a game tile, one a staging part, one a slot
+  static constexpr int FIXED = 1024 + TILES * G::TILE_BYTES + 2 * HALF_BYTES +
+                               (2 * TILES + 2 + MAX_SLOTS) * 8;
+  static constexpr int FIT = (232448 - FIXED) / SLOT_BYTES;
+  static constexpr int SLOTS = FIT < MAX_SLOTS ? FIT : MAX_SLOTS;  // 4
+  static constexpr int SMEM_BYTES = FIXED + SLOTS * SLOT_BYTES;
+
+  static_assert(C_ > 128 && C_ <= 256, "the streamed path: 144 to 256 channels");
+  static_assert(S_ % 2 == 0 && LOADS <= 8, "parts of two board rows, 8 float4s a thread");
+  static_assert(SLOTS >= 3, "a tile in products, one released, one loading");
+  static_assert(SMEM_BYTES <= 232448, "fits one block's shared memory");
+};
+
+constexpr int PAIR_BAR = 4;  // the two consumers' named barrier (1 + wg are the warpgroups')
+
+// The stream that a CTA's consumer pair shares: tiles [0, total), per_layer
+// a layer from layer0, each ROWS output channels from row0 of a tap; and
+// whether this thread loads them
+struct Stream {
+  uint32_t ws, wfull;
+  const CUtensorMap* map;
+  int total, per_layer, layer0, row0;
+  bool loader;
+};
+
+// The loader: weight tile n of the stream into slot n % SLOTS. Tile n is
+// step n % STEPS (tap, panel) of layer `layer0 + n / per_layer`.
+template <class T>
+__device__ __forceinline__ void load_tile(const Stream& st, int n) {
+  const int slot = n % T::SLOTS, step = n % T::STEPS;
+  const int layer = st.layer0 + n / st.per_layer;
+  mbar_expect_tx(st.wfull + slot * 8, T::SLOT_BYTES);
+  tma_load_2d(st.ws + slot * T::SLOT_BYTES, st.map, (step % T::PANELS) * T::SW,
+              (layer * TAPS + step / T::PANELS) * T::C + st.row0, st.wfull + slot * 8);
+}
+
+// The first SLOTS tiles (thread 0, after the barriers' init)
+template <class T>
+__device__ __forceinline__ void load_first_tiles(const Stream& st) {
+  for (int n = 0; n < T::SLOTS && n < st.total; ++n) load_tile<T>(st, n);
+}
+
+// Tile n is done in both consumers: the pair's barrier, then the loader
+// fetches tile n + SLOTS into its slot
+template <class T>
+__device__ __forceinline__ void release_tile(const Stream& st, int n) {
+  asm volatile("bar.sync %0, 256;\n" ::"n"(PAIR_BAR) : "memory");
+  if (st.loader && n + T::SLOTS < st.total) load_tile<T>(st, n + T::SLOTS);
+}
+
+// A consumer's products of one game from the stream's tiles tile0 .. tile0 +
+// STEPS - 1: N output channels from row `row` of each tile, into acc
+// (int32 sums; STAGE_BF16: the f32 sum of the taps' bf16-rounded sums).
+// N = 0: no products, only the pair's barrier for each tile.
+template <bool STAGE_BF16, class T, int N, typename Acc>
+__device__ __forceinline__ void stream_products(Acc (&acc)[N > 0 ? N / 2 : 1], const Stream& st,
+                                                uint32_t tile, int tile0, int row) {
+  if constexpr (N == 0) {
+#pragma unroll 1
+    for (int i = 0; i < T::STEPS; ++i) release_tile<T>(st, tile0 + i);
+  } else {
+    constexpr int NA = N / 2, KS = T::SW / 32;  // k-steps a tile
+    int part[2][NA];  // STAGE_BF16: two taps' sums, one in flight while the other is added
+    if constexpr (STAGE_BF16) {
+#pragma unroll
+      for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < T::STEPS; ++i) {
+      const int n = tile0 + i, slot = n % T::SLOTS;
+      const int tap = i / T::PANELS, panel = i % T::PANELS;
+      const uint32_t b = st.ws + slot * T::SLOT_BYTES + row * T::SW;
+      mbar_wait_or_trap(st.wfull + slot * 8, (n / T::SLOTS) & 1);
+      if constexpr (STAGE_BF16) {
+        fence_operands(part[tap & 1]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          wgmma_s8(part[tap & 1], a_desc<T>(a_tap<T>(tile, tap), panel * KS + kk),
+                   b_desc<T>(b, kk, 0), panel + kk > 0);
+      } else {
+        fence_operands(acc);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          wgmma_s8(acc, a_desc<T>(a_tap<T>(tile, tap), panel * KS + kk), b_desc<T>(b, kk, 0),
+                   i + kk > 0);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      if (i > 0) {
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        if constexpr (STAGE_BF16) {
+          if (panel == 0) add_tap(acc, part[(tap - 1) & 1]);  // tap - 1 is whole
+        } else {
+          fence_operands(acc);
+        }
+        release_tile<T>(st, n - 1);
+      }
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    if constexpr (STAGE_BF16)
+      add_tap(acc, part[(TAPS - 1) & 1]);
+    else
+      fence_operands(acc);
+    release_tile<T>(st, tile0 + T::STEPS - 1);
+  }
+}
+
+// A consumer's share of one game: the products of its N channels, rows
+// tile_row on of each tile and channels n_first on of the output, the game
+// tile's release (empty), the epilogue (see epilogue) and the next layer's
+// amax. N = 0 (a CTA share that the other consumer covers): the barriers
+// and the release only.
+template <bool STAGE_BF16, class T, int N>
+__device__ __forceinline__ void stream_game(const Stream& st, uint32_t tile, uint32_t empty,
+                                            int tile0, int tile_row, int n_first, float s_act,
+                                            const float* wscale, const float* bias,
+                                            const float* resid, float* out,
+                                            __nv_bfloat16* out_bf16, size_t game_off, int row0,
+                                            int col0, int is_conv1, int is_last,
+                                            float* amax_next) {
+  using Acc = typename std::conditional<STAGE_BF16, float, int>::type;
+  if constexpr (N == 0) {
+    Acc none[1];
+    stream_products<STAGE_BF16, T, 0>(none, st, tile, tile0, tile_row);
+    mbar_arrive(empty);
+  } else {
+    Acc acc[N / 2];
+    float2 res[N / 4];
+    stream_products<STAGE_BF16, T, N>(acc, st, tile, tile0, tile_row);
+    mbar_arrive(empty);  // this consumer's products of the game are done
+    load_residual<T>(res, resid, game_off + n_first, row0, col0, is_conv1);
+    float m = is_last ? epilogue<true, T>(acc, res, s_act, wscale + n_first, bias + n_first,
+                                          out, out_bf16, game_off + n_first, row0, col0)
+                      : epilogue<false, T>(acc, res, s_act, wscale + n_first, bias + n_first,
+                                           out, out_bf16, game_off + n_first, row0, col0);
+    m = warp_max(m);
+    if ((threadIdx.x & 31) == 0 && amax_next)
+      atomicMax(reinterpret_cast<int*>(amax_next), __float_as_int(m));
+  }
+}
+
+// Thread 0 of the producer: part `part` of game g into staging buffer b
+template <class T>
+__device__ __forceinline__ void stage_part(uint32_t staging, uint32_t sbars, const float* in,
+                                           int g, int part, int b) {
+  mbar_expect_tx(sbars + b * 8, T::HALF_BYTES);
+  bulk_load(staging + b * T::HALF_BYTES,
+            in + (static_cast<size_t>(g) * T::P + part * T::PART_POS) * T::C, T::HALF_BYTES,
+            sbars + b * 8);
+}
+
+// The producer's work on one game: its NPART parts, each read from staging
+// buffer u & 1 (u = the CTA's part count, j * NPART + part), quantized into
+// the padded tile and replaced by part u + 2 where `next_game(u + 2)` gives
+// its game (negative: none). Then the tile is full.
+template <class T, typename NextGame>
+__device__ __forceinline__ void produce_game(uint32_t tile, uint32_t full, uint32_t staging,
+                                             uint32_t sbars, const float* in, int j, float s_act,
+                                             int t, NextGame next_game) {
+  const float y = __frcp_rn(s_act);
+#pragma unroll 1
+  for (int pp = 0; pp < T::NPART; ++pp) {
+    const int u = j * T::NPART + pp, b = u & 1;
+    mbar_wait_or_trap(sbars + b * 8, (u >> 1) & 1);
+    float4 v[T::LOADS];
+    read_half<T>(v, staging + b * T::HALF_BYTES, t);
+    quantize_into<T>(tile + pp * (T::PART_POS / T::S) * T::PADW * 16, v, s_act, y, t);
+    wg_sync(0);  // every producer thread has read the part
+    if (t == 0) {
+      const int g2 = next_game((u + 2) / T::NPART);
+      if (g2 >= 0) stage_part<T>(staging, sbars, in, g2, (u + 2) % T::NPART, b);
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma's reads
+  mbar_arrive(full);
+}
+
+// One 3x3 conv of the trunk above 128 channels: the body's function and
+// arguments (see int8_conv_kernel), the weights streamed (see the note).
+// CTA blockIdx.x takes games blockIdx.x, + gridDim.x, ...; warpgroup 0
+// stages and quantizes them into two padded tiles, warpgroups 1 and 2 both
+// compute each, output channels [0, 128) and [128, C).
+template <int S, int C, bool STAGE_BF16>
+__global__ void __launch_bounds__(CONV_THREADS, 1)
+int8_conv_stream_kernel(const __grid_constant__ CUtensorMap wmap, const float* __restrict__ in,
+                        const float* resid, float* out, __nv_bfloat16* __restrict__ out_bf16,
+                        const float* __restrict__ wscale, const float* __restrict__ bias,
+                        float* amax, int layer, int num_layers, int B, int bg, int is_conv1,
+                        int is_last) {
+  using T = StreamShape<S, C>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ws = (smem_u32(smem_raw) + 1023) & ~1023u;   // the weight ring
+  const uint32_t tiles = ws + T::SLOTS * T::SLOT_BYTES;         // the padded game tiles
+  const uint32_t staging = tiles + T::TILES * T::TILE_BYTES;    // two f32 parts
+  const uint32_t bars = staging + 2 * T::HALF_BYTES;            // full[TILES], empty[TILES]
+  const uint32_t sbars = bars + 2 * T::TILES * 8;               // the staging parts'
+  const uint32_t wfull = sbars + 2 * 8;                         // the slots'
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wl = warp & 3, t = tid & 127;
+  const int step = gridDim.x;
+  const int n_games = blockIdx.x < B ? (B - 1 - blockIdx.x) / step + 1 : 0;
+  const Stream st = {ws, wfull, &wmap, n_games * T::STEPS, n_games * T::STEPS, 0, 0, tid == 128};
+  const float* amax_in = amax + layer * (B / bg);
+
+  if (tid == 0) {
+    for (int s = 0; s < T::TILES; ++s) {
+      mbar_init(bars + s * 8, 128);                 // full: the producer's threads
+      mbar_init(bars + (T::TILES + s) * 8, 256);    // empty: both consumers' threads
+    }
+    mbar_init(sbars, 1);
+    mbar_init(sbars + 8, 1);
+    for (int s = 0; s < T::SLOTS; ++s) mbar_init(wfull + s * 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    load_first_tiles<T>(st);
+  }
+  __syncthreads();  // the barriers' init
+  // a programmatic dependent of the previous conv, as int8_conv_kernel
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    for (int i = t; i < T::TILES * T::TILE_BYTES / 16; i += 128) st_zero16(tiles + i * 16);
+    wg_sync(0);
+    if (t == 0 && n_games > 0) {
+      stage_part<T>(staging, sbars, in, blockIdx.x, 0, 0);
+      stage_part<T>(staging, sbars, in, blockIdx.x, 1, 1);
+    }
+    for (int j = 0; j < n_games; ++j) {
+      const int s = j % T::TILES, g = blockIdx.x + j * step;
+      mbar_wait_or_trap(bars + (T::TILES + s) * 8, ((j / T::TILES) & 1) ^ 1);  // empty[s]
+      produce_game<T>(tiles + s * T::TILE_BYTES, bars + s * 8, staging, sbars, in, j,
+                      act_scale(amax_in[g / bg]), t, [&](int j2) {
+                        return j2 < n_games ? static_cast<int>(blockIdx.x) + j2 * step : -1;
+                      });
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int c = wg - 1;
+  const int row0 = wl * 16 + (lane >> 2), col0 = 2 * (lane & 3);
+  for (int j = 0; j < n_games; ++j) {
+    const int s = j % T::TILES, g = blockIdx.x + j * step;
+    const uint32_t tile = tiles + s * T::TILE_BYTES, empty = bars + (T::TILES + s) * 8;
+    const float s_act = act_scale(amax_in[g / bg]);
+    const size_t game_off = static_cast<size_t>(g) * T::P * C;
+    float* amax_next = layer + 1 < num_layers ? amax + (layer + 1) * (B / bg) + g / bg : nullptr;
+    mbar_wait_or_trap(bars + s * 8, (j / T::TILES) & 1);  // full[s]
+    if (c == 0)
+      stream_game<STAGE_BF16, T, T::N0>(st, tile, empty, j * T::STEPS, 0, 0, s_act, wscale,
+                                        bias, resid, out, out_bf16, game_off, row0, col0,
+                                        is_conv1, is_last, amax_next);
+    else
+      stream_game<STAGE_BF16, T, T::N1>(st, tile, empty, j * T::STEPS, T::N0, T::N0, s_act,
+                                        wscale, bias, resid, out, out_bf16, game_off, row0,
+                                        col0, is_conv1, is_last, amax_next);
+  }
+}
+
 // The pre-pass: bf16 trunk input to f32, and the first layer's per-block
 // amax (the others' are zeroed for the convs' atomicMax).
 template <int S, int C>
@@ -537,6 +843,23 @@ int prepass(const void* x, void* xf, void* amax, int B, int bg, int num_layers, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// A conv launch's kernel and shared memory: the streamed kernel's above 128
+// channels
+template <int S, int C, bool STAGE_BF16>
+auto conv_kernel() {
+  if constexpr (C > 128)
+    return int8_conv_stream_kernel<S, C, STAGE_BF16>;
+  else
+    return int8_conv_kernel<S, C, STAGE_BF16>;
+}
+template <int S, int C>
+constexpr int conv_launch_smem() {
+  if constexpr (C > 128)
+    return StreamShape<S, C>::SMEM_BYTES;
+  else
+    return conv_smem_bytes<Shape<S, C>>();
+}
+
 // One conv launch. w: this layer's (9, C_out, C_in) int8 weights. Returns 0,
 // a cudaError_t, or minus a CUresult of the tensor-map encoder.
 template <int S, int C, bool STAGE_BF16>
@@ -544,13 +867,15 @@ int launch(const void* in, const void* resid, void* out, void* out_bf16, const v
            const void* wscale, const void* bias, void* amax, int layer, int num_layers, int B,
            int bg, int is_conv1, int is_last, void* stream) {
   using G = Shape<S, C>;
-  constexpr int SMEM_BYTES = conv_smem_bytes<G>();
+  // above 128 channels the streamed kernel; C <= 128 compiles as before
+  constexpr bool STREAM = C > 128;
+  constexpr int SMEM_BYTES = conv_launch_smem<S, C>();
   static_assert(SMEM_BYTES <= 232448, "fits one block's shared memory");
   static HostState host;
   if (B <= 0) return 0;
   if ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(w)) & 15)
     return static_cast<int>(cudaErrorInvalidValue);  // 16-byte loads, TMA
-  auto kernel = int8_conv_kernel<S, C, STAGE_BF16>;
+  auto kernel = conv_kernel<S, C, STAGE_BF16>();
   // a box is one panel of one tap: C output channels x SW input channels,
   // swizzled as wgmma reads them (128 x 128 at C = 128)
   const WeightMap layout = {CU_TENSOR_MAP_DATA_TYPE_UINT8,
@@ -563,9 +888,11 @@ int launch(const void* in, const void* resid, void* out, void* out_bf16, const v
   const int rc = prepare_launch(host, reinterpret_cast<const void*>(kernel), SMEM_BYTES, w,
                                 layout, &wmap, &sms);
   if (rc != 0) return rc;
-  // one CTA per SM (the shared memory), two consumers each; a programmatic
-  // dependent of the previous launch on the stream (see the kernel)
-  const int ctas = (B + 1) / 2 < sms ? (B + 1) / 2 : sms;
+  // one CTA per SM (the shared memory), two consumers each, on alternate
+  // games (streamed: both on every game); a programmatic dependent of the
+  // previous launch on the stream (see the kernel)
+  const int per_cta = STREAM ? B : (B + 1) / 2;
+  const int ctas = per_cta < sms ? per_cta : sms;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;

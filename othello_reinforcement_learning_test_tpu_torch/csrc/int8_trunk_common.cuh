@@ -1,7 +1,8 @@
 // Pieces shared by the int8 trunk kernels (through int8_conv_sm90.cuh:
 // trunk_int8_dx3.cu, trunk_int8.cu, trunk_int8_m9.cu, trunk_int8_patch.cu,
 // trunk_int8_flat.cu, trunk_int8_dxcat.cu): the geometry of an instance
-// (board side S, C channels), the activation scale, the warp max, and the
+// (board side S, C channels; above 128 channels the streamed path's
+// StreamShape adds its own), the activation scale, the warp max, and the
 // pre-pass that converts the bf16 trunk input to f32 and reduces the first
 // layer's per-block amax. Included inside the conv body's anonymous
 // namespace, after <cuda_bf16.h>, <cuda_runtime.h> and sm90_common.cuh.
@@ -13,7 +14,7 @@ constexpr int TAPS = 9;
 constexpr int STAGES = 3;     // the ring of padded tiles
 
 // The geometry of one instance: S x S boards (4, 6 or 8), C channels in and
-// out (a multiple of 16 up to 128). Values at S = 8, C = 128 in the notes.
+// out (a multiple of 16 up to 256). Values at S = 8, C = 128 in the notes.
 template <int S_, int C_>
 struct Shape {
   static constexpr int S = S_, C = C_;
@@ -39,8 +40,8 @@ struct Shape {
   static constexpr int LOADS = (HALF_F4 + 127) / 128;  // a producer thread's: 8
 
   static_assert(S == 4 || S == 6 || S == 8, "board side 4, 6 or 8");
-  static_assert(C % 16 == 0 && C >= 16 && C <= 128,
-                "channels a multiple of 16 up to 128: a layer's weights fit one CTA");
+  static_assert(C % 16 == 0 && C >= 16 && C <= 256,
+                "channels a multiple of 16 up to 256 (above 128 the weights are streamed)");
 
   // the padded tile's position of position p of the board
   static __device__ __forceinline__ int tile_pos(int p) {

@@ -55,6 +55,21 @@
 //   the kernel's first phase; the host call zeroes the amax and the barrier
 //   counters first (one memset) and launches once.
 //
+// Above 128 channels (int8_trunk_stream_kernel; C <= 128 compiles to the
+// kernels above, unchanged) a layer's weights do not fit one CTA, and they
+// are streamed as in the body's streamed path (int8_conv_sm90.cuh): a ring
+// of (tap, panel) tiles, loaded ahead across the grid barrier into the next
+// layer's first tiles (the weights are never written). The split rule is
+// the one above, on channel shares that a stream can serve:
+// - B < sms (split): CTA pairs, a game's channels [0, 128) in one CTA and
+//   [128, C) in the other, its consumers 64 each (or, in the second CTA,
+//   min(64, C - 128) and the rest, none below 80 channels). A CTA streams
+//   only its share of a layer, 128 rows of 9 x KP bytes a tap's panel
+//   (16,384 B tiles at C = 256: eight in the ring). At the gated batches
+//   (B = 40-64) each CTA holds one game a layer.
+// - B >= sms (whole): one CTA a game, its consumers [0, 128) and [128, C),
+//   each tile all C rows, as the body's streamed kernel.
+//
 // Launches of a layer range [lb, le) (kernels/conv_stages.py launches one a
 // conv to measure what the barrier buys) use barrier counter lb.
 
@@ -314,6 +329,160 @@ int8_trunk_kernel(const __grid_constant__ CUtensorMap wmap, const __nv_bfloat16*
   }
 }
 
+// The trunk's layers [lb, le) above 128 channels: the arguments of
+// int8_trunk_kernel, the weights streamed (see the note). SPLIT: the
+// channel split across a CTA pair.
+template <int S, int C, bool SPLIT>
+__global__ void __launch_bounds__(CONV_THREADS, 1)
+int8_trunk_stream_kernel(const __grid_constant__ CUtensorMap wmap,
+                         const __nv_bfloat16* __restrict__ x, float* xf, float* yf,
+                         __nv_bfloat16* out, const float* __restrict__ wscale,
+                         const float* __restrict__ bias, float* amax, unsigned* count, int L,
+                         int B, int bg, int lb, int le) {
+  using T = StreamShape<S, C, SPLIT ? 128 : C>;
+  constexpr int P = T::P;
+  // split: CTA 2i + h holds channels [128 h, 128 h + W_h) of its games,
+  // W_0 = 128, W_1 = C - 128; its consumers Q0 and Q1 of them (Q1 may be 0)
+  constexpr int W1 = C - 128, Q0 = W1 < 64 ? W1 : 64, Q1 = W1 - Q0;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ws = (smem_u32(smem_raw) + 1023) & ~1023u;   // the weight ring
+  const uint32_t tiles = ws + T::SLOTS * T::SLOT_BYTES;         // the padded game tiles
+  const uint32_t staging = tiles + T::TILES * T::TILE_BYTES;    // two f32 parts
+  const uint32_t bars = staging + 2 * T::HALF_BYTES;            // full[TILES], empty[TILES]
+  const uint32_t sbars = bars + 2 * T::TILES * 8;               // the staging parts'
+  const uint32_t wfull = sbars + 2 * 8;                         // the slots'
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wl = warp & 3, t = tid & 127;
+  const int nblk = B / bg;
+  // this CTA's games: slot, slot + step, ... (n of them, at least one)
+  const int slot = SPLIT ? blockIdx.x >> 1 : blockIdx.x;
+  const int step = SPLIT ? gridDim.x >> 1 : gridDim.x;
+  const int n = (B - slot + step - 1) / step;
+  const int my_half = SPLIT ? blockIdx.x & 1 : 0;
+  const Stream st = {ws, wfull, &wmap, (le - lb) * n * T::STEPS, n * T::STEPS, lb,
+                     128 * my_half, tid == 128};
+
+  if (tid == 0) {
+    for (int s = 0; s < T::TILES; ++s) {
+      mbar_init(bars + s * 8, 128);                 // full: the producer's threads
+      mbar_init(bars + (T::TILES + s) * 8, 256);    // empty: both consumers' threads
+    }
+    mbar_init(sbars, 1);
+    mbar_init(sbars + 8, 1);
+    for (int s = 0; s < T::SLOTS; ++s) mbar_init(wfull + s * 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    load_first_tiles<T>(st);
+  }
+  for (int i = tid; i < T::TILES * T::TILE_BYTES / 16; i += CONV_THREADS)
+    st_zero16(tiles + i * 16);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the halos, for wgmma
+  __syncthreads();
+
+  unsigned barriers = 0;
+  if (lb == 0) {
+    // the pre-pass (int8_trunk_kernel's): a split CTA converts its half of
+    // each game's rows
+    const int r0 = my_half * (P / 2), rows = SPLIT ? P / 2 : P;
+    for (int i = 0; i < n; ++i) {
+      const int g = slot + i * step;
+      const size_t off = (static_cast<size_t>(g) * P + r0) * C;
+      const uint4* src = reinterpret_cast<const uint4*>(x + off);
+      float4* dst = reinterpret_cast<float4*>(xf + off);
+      float m = 0.0f;
+      for (int k = tid; k < rows * C / 8; k += CONV_THREADS) {
+        const uint4 u = src[k];
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+        float f[8];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          f[2 * e] = __uint_as_float(w[e] << 16);
+          f[2 * e + 1] = __uint_as_float(w[e] & 0xFFFF0000u);
+        }
+        dst[2 * k] = make_float4(f[0], f[1], f[2], f[3]);
+        dst[2 * k + 1] = make_float4(f[4], f[5], f[6], f[7]);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(f[e]));
+      }
+      m = warp_max(m);
+      if (lane == 0) atomicMax(reinterpret_cast<int*>(amax) + g / bg, __float_as_int(m));
+    }
+    grid_barrier(count, ++barriers * gridDim.x);
+  }
+
+  // the roles for the whole launch, so that the producer gives the
+  // consumers its registers (setmaxnreg), as in the body; every thread
+  // still takes each grid barrier
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    // jj: the CTA's games before this layer in the launch (tiles, parts, phases)
+    for (int l = lb, jj = 0; l < le; ++l, jj += n) {
+      const float* in = l & 1 ? yf : xf;
+      const float* amax_in = amax + l * nblk;
+      // the layer's games by parts, quantized into the tiles; a part's
+      // replacement only from this layer's games (the next layer's input
+      // is whole only after the grid barrier)
+      if (t == 0) {
+        stage_part<T>(staging, sbars, in, slot, 0, (jj * T::NPART) & 1);
+        stage_part<T>(staging, sbars, in, slot, 1, (jj * T::NPART + 1) & 1);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int j = jj + i, g = slot + i * step, s = j % T::TILES;
+        mbar_wait_or_trap(bars + (T::TILES + s) * 8, ((j / T::TILES) & 1) ^ 1);  // empty[s]
+        produce_game<T>(tiles + s * T::TILE_BYTES, bars + s * 8, staging, sbars, in, j,
+                        act_scale(__ldcg(amax_in + g / bg)), t, [&](int j2) {
+                          return j2 - jj < n ? slot + (j2 - jj) * step : -1;
+                        });
+      }
+      if (l + 1 < le) grid_barrier(count, ++barriers * gridDim.x);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int c = wg - 1;
+  const int row0 = wl * 16 + (lane >> 2), col0 = 2 * (lane & 3);
+  for (int l = lb, jj = 0; l < le; ++l, jj += n) {
+    const int conv1 = l & 1, last = l == L - 1;
+    float* dst = conv1 ? xf : yf;
+    const float* amax_in = amax + l * nblk;
+    const float* wsc = wscale + l * C;
+    const float* bi = bias + l * C;
+    for (int i = 0; i < n; ++i) {
+      const int j = jj + i, g = slot + i * step, s = j % T::TILES;
+      const uint32_t tile = tiles + s * T::TILE_BYTES, empty = bars + (T::TILES + s) * 8;
+      const float s_act = act_scale(__ldcg(amax_in + g / bg));
+      const size_t game_off = static_cast<size_t>(g) * P * C;
+      const int tile0 = ((l - lb) * n + i) * T::STEPS;
+      float* amax_next = l + 1 < L ? amax + (l + 1) * nblk + g / bg : nullptr;
+      mbar_wait_or_trap(bars + s * 8, (j / T::TILES) & 1);  // full[s]
+      // (tile row, first output channel) of this consumer's share
+      if constexpr (SPLIT) {
+        if (my_half == 0) {
+          if (c == 0)
+            stream_game<false, T, 64>(st, tile, empty, tile0, 0, 0, s_act, wsc, bi, xf, dst,
+                                      out, game_off, row0, col0, conv1, last, amax_next);
+          else
+            stream_game<false, T, 64>(st, tile, empty, tile0, 64, 64, s_act, wsc, bi, xf, dst,
+                                      out, game_off, row0, col0, conv1, last, amax_next);
+        } else if (c == 0) {
+          stream_game<false, T, Q0>(st, tile, empty, tile0, 0, 128, s_act, wsc, bi, xf, dst,
+                                    out, game_off, row0, col0, conv1, last, amax_next);
+        } else {
+          stream_game<false, T, Q1>(st, tile, empty, tile0, Q0, 128 + Q0, s_act, wsc, bi, xf,
+                                    dst, out, game_off, row0, col0, conv1, last, amax_next);
+        }
+      } else if (c == 0) {
+        stream_game<false, T, T::N0>(st, tile, empty, tile0, 0, 0, s_act, wsc, bi, xf, dst, out,
+                                     game_off, row0, col0, conv1, last, amax_next);
+      } else {
+        stream_game<false, T, T::N1>(st, tile, empty, tile0, T::N0, T::N0, s_act, wsc, bi, xf,
+                                     dst, out, game_off, row0, col0, conv1, last, amax_next);
+      }
+    }
+    if (l + 1 < le) grid_barrier(count, ++barriers * gridDim.x);
+  }
+}
+
 // The kernel for a launch: split where the shape allows it and it is asked
 template <int S, int C>
 auto trunk_kernel(bool split) {
@@ -323,6 +492,60 @@ auto trunk_kernel(bool split) {
     return int8_trunk_kernel<S, C, false>;
 }
 
+// Layers [lb, le) above 128 channels in one cooperative launch of the
+// streamed kernel, split below sms games (see the note); the arguments of
+// launch_layers
+template <int S, int C>
+int launch_stream_layers(const void* x, void* xf, void* yf, void* out, const void* w,
+                         const void* wscale, const void* bias, void* amax, void* count, int L,
+                         int B, int bg, int lb, int le, void* stream) {
+  using Whole = StreamShape<S, C>;
+  using Split = StreamShape<S, C, 128>;
+  static HostState hosts[2];  // the split kernel's, the whole one's
+  // a box is one panel of one tap: a CTA's output channels (128 split, C
+  // whole; the second CTA of a pair reads past its C - 128, unused) x SW
+  // input channels
+  const WeightMap split_layout = {CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                                  {C, static_cast<cuuint64_t>(L) * TAPS * C},
+                                  C,
+                                  {Split::SW, 128},
+                                  swizzle_mode(Split::SW)};
+  const WeightMap whole_layout = {CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                                  {C, static_cast<cuuint64_t>(L) * TAPS * C},
+                                  C,
+                                  {Whole::SW, C},
+                                  swizzle_mode(Whole::SW)};
+  CUtensorMap wmap;
+  int sms = 0;
+  int rc = prepare_launch(hosts[0],
+                          reinterpret_cast<const void*>(int8_trunk_stream_kernel<S, C, true>),
+                          Split::SMEM_BYTES, w, split_layout, &wmap, &sms);
+  if (rc != 0) return rc;
+  const bool split = B < sms;
+  auto kernel =
+      split ? int8_trunk_stream_kernel<S, C, true> : int8_trunk_stream_kernel<S, C, false>;
+  if (!split &&
+      (rc = prepare_launch(hosts[1], reinterpret_cast<const void*>(kernel), Whole::SMEM_BYTES, w,
+                           whole_layout, &wmap, &sms)) != 0)
+    return rc;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(split ? 2 * (B < sms / 2 ? B : sms / 2) : (B < sms ? B : sms));
+  config.blockDim = dim3(CONV_THREADS);
+  config.dynamicSmemBytes = split ? Split::SMEM_BYTES : Whole::SMEM_BYTES;
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &config, kernel, wmap, static_cast<const __nv_bfloat16*>(x), static_cast<float*>(xf),
+      static_cast<float*>(yf), static_cast<__nv_bfloat16*>(out),
+      static_cast<const float*>(wscale), static_cast<const float*>(bias),
+      static_cast<float*>(amax), static_cast<unsigned*>(count), L, B, bg, lb, le);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
 // Layers [lb, le) of the trunk in one cooperative launch on barrier counter
 // `count`. w: (L, 9, C_out, C_in) int8. Returns 0, a cudaError_t, or minus
 // a CUresult of the tensor-map encoder.
@@ -330,6 +553,10 @@ template <int S, int C>
 int launch_layers(const void* x, void* xf, void* yf, void* out, const void* w, const void* wscale,
                   const void* bias, void* amax, void* count, int L, int B, int bg, int lb, int le,
                   void* stream) {
+  if constexpr (C > 128) {
+    return launch_stream_layers<S, C>(x, xf, yf, out, w, wscale, bias, amax, count, L, B, bg, lb,
+                                      le, stream);
+  } else {
   using T = TrunkShape<S, C>;
   static HostState hosts[2];  // the split kernel's, the whole one's
   // a box is one panel of one tap's half: NH output channels x SW input
@@ -372,6 +599,7 @@ int launch_layers(const void* x, void* xf, void* yf, void* out, const void* w, c
       static_cast<const float*>(wscale), static_cast<const float*>(bias),
       static_cast<float*>(amax), static_cast<unsigned*>(count), L, B, bg, lb, le);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+  }
 }
 
 // One trunk forward: zeroes the scratch (the amax, L x B / bg floats, then

@@ -1,5 +1,6 @@
 // Pieces the two Hopper (sm_90a) conv bodies share (bf16_conv_sm90.cuh,
-// int8_conv_sm90.cuh): shared-memory addresses, mbarriers, the TMA tile
+// int8_conv_sm90.cuh): shared-memory addresses, mbarriers (a bounded wait
+// for the streamed kernels), the TMA tile
 // load, wgmma matrix descriptors, swizzles, instructions at every width the
 // trunks use, and fences, the warpgroup barrier, and the
 // host's one-time set-up of a launch (the tensor-map encoder looked up
@@ -35,6 +36,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
+// mbarrier arrive (release) by this thread
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
   do {
@@ -46,6 +52,27 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// mbar_wait that fails instead of hanging: about 10 s at the SM clock
+// without the phase completing is a fault (a lost arrival or load), and
+// the launch ends with an error (the streamed kernels)
+constexpr long long WAIT_CYCLES = 20000000000LL;
+__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long t0 = 0;
+  for (int k = 0;; ++k) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (k == 0) t0 = clock64();
+    else if (clock64() - t0 > WAIT_CYCLES) __trap();
+  }
 }
 
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,

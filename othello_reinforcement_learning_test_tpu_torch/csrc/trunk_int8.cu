@@ -32,9 +32,14 @@
 // stores 0.53 ms, without the input loads 0.64 ms, without the products
 // 0.71 ms: the f32 activation traffic limits it, the stores most.
 //
-// Shapes: board side S in {4, 6, 8} and C a multiple of 16 up to 128, one
-// library a shape (built with -DTRUNK_S, -DTRUNK_C); the wrapper refuses any
-// other before a launch. The figures above are at S = 8, C = 128.
+// Shapes: board side S in {4, 6, 8} and C a multiple of 16 up to 256, one
+// library a shape (built with -DTRUNK_S, -DTRUNK_C); above 128 channels a
+// layer's weights are streamed through shared memory (int8_conv_sm90.cuh's
+// note); the wrapper runs any other width up to 256 at the next multiple
+// of 16 with zero channels and refuses the rest before a launch. The
+// figures above are at S = 8, C = 128; at C = 256, B = 1024, 20 convs the
+// operations bound is 0.781 ms and the f32 bytes floor 1.024 ms (PERF.md
+// holds the times).
 //
 // Plain C interface for ctypes; each function returns 0 or an error code.
 

@@ -19,10 +19,13 @@
 // from the bias, inside the bound `sum_error_bound` puts on any order of the
 // 9C + 10 terms.
 //
-// Shapes: board side S in {4, 6, 8} and C a multiple of 16 up to 128, one
-// library a shape (built with -DTRUNK_S, -DTRUNK_C); the wrapper refuses any
-// other before a launch. The plain version takes any board side and
-// channel count.
+// Shapes: board side S in {4, 6, 8} and C a multiple of 16 up to 256, one
+// library a shape (built with -DTRUNK_S, -DTRUNK_C); above 128 channels the
+// CTA's taps are streamed through shared memory (bf16_conv_sm90.cuh's
+// note); the wrapper runs any other width up to 256 at the next multiple
+// of 16 with zero channels and refuses the rest before a launch. The plain
+// version takes any board side and channel count. At C = 256, B = 1024,
+// 20 convs the operations bound is 1.563 ms (PERF.md holds the times).
 //
 // Bound on an H100 SXM: 2 * 9 * C^2 * (B * 64) * L = 3.87e11 bf16 operations
 // per forward at B = 1024, L = 20, C = 128, 0.391 ms at the dense bf16

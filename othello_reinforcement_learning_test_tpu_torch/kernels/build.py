@@ -9,7 +9,9 @@ an edited source or header is rebuilt and an unchanged one is reused.
 The trunk sources are templates on the board side S and the channel count
 C: each library is one shape, built at its first use with ``-DTRUNK_S`` and
 ``-DTRUNK_C`` (in its file name and hash), so a process builds only the
-shapes it runs. :func:`check_trunk_shape` states the shapes they take.
+shapes it runs. :func:`check_trunk_shape` states the shapes they take: every
+width from 1 to 256, a library being built at the width rounded up to a
+multiple of 16 (:func:`padded_channels`; the wrappers add zero channels).
 
 ``-fmad=false`` keeps every float multiply and add separately rounded, as
 the plain PyTorch versions compute them, so kernel and plain version can
@@ -37,9 +39,12 @@ SOURCES = ("trunk_int8_dx3", "trunk_matmul9", "trunk_int8", "random_step", "trun
 # the sources that are not trunks, built without a shape
 UNSHAPED = ("random_step",)
 # the trunks' shapes: every board side the engine takes, and channel counts
-# whose layer of int8 weights (9 C^2 bytes) one CTA's shared memory holds
+# up to 256 (past 128 the kernels stream a layer's weights through shared
+# memory; past 256 an int8 wgmma's N, one consumer's 128 channels beside
+# the other's, and the ring's tiles run out: ROADMAP.md section 5.3); the
+# libraries are built at multiples of CHANNEL_STEP
 BOARD_SIDES = (4, 6, 8)
-CHANNEL_STEP, MAX_CHANNELS = 16, 128
+CHANNEL_STEP, MAX_CHANNELS = 16, 256
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
@@ -73,31 +78,37 @@ def find_nvcc() -> str:
 
 def check_trunk_shape(S: int, C: int) -> None:
     """Raise ``ValueError`` unless the CUDA trunk kernels take S x S boards
-    of C channels: S in :data:`BOARD_SIDES`, C a multiple of 16 from 16 to
-    128 (above 128 a layer's int8 weights do not fit one CTA)."""
-    if S not in BOARD_SIDES or C % CHANNEL_STEP or not CHANNEL_STEP <= C <= MAX_CHANNELS:
+    of C channels: S in :data:`BOARD_SIDES`, 1 <= C <= :data:`MAX_CHANNELS`."""
+    if S not in BOARD_SIDES or not 1 <= C <= MAX_CHANNELS:
         raise ValueError(
             f"the CUDA trunk kernels take board sides {', '.join(map(str, BOARD_SIDES))} and "
-            f"channel counts that are multiples of {CHANNEL_STEP} from {CHANNEL_STEP} to "
-            f"{MAX_CHANNELS}; got S={S} C={C}")
+            f"channel counts from 1 to {MAX_CHANNELS}; got S={S} C={C}")
+
+
+def padded_channels(C: int) -> int:
+    """The width a library is built at: C rounded up to a multiple of
+    :data:`CHANNEL_STEP` (the wrappers pad the trunk with zero channels)."""
+    return -(-C // CHANNEL_STEP) * CHANNEL_STEP
 
 
 def trunk_shape(x) -> Tuple[int, int]:
-    """(S, C) of a trunk input (B, S, S, C), checked by :func:`check_trunk_shape`."""
+    """(S, padded C) of a trunk input (B, S, S, C): the shape of its library,
+    after :func:`check_trunk_shape`."""
     S, C = int(x.shape[2]), int(x.shape[3])
     check_trunk_shape(S, C)
-    return S, C
+    return S, padded_channels(C)
 
 
 @functools.cache
 def build(name: str, shape: Optional[Tuple[int, int]] = None) -> Built:
-    """Compile ``csrc/<name>.cu`` (a trunk at ``shape``, (S, C)) unless a
-    library for this exact source, these headers, flags and shape already
-    exists."""
+    """Compile ``csrc/<name>.cu`` (a trunk at ``shape``, (S, C), built at
+    (S, :func:`padded_channels` (C))) unless a library for this exact
+    source, these headers, flags and shape already exists."""
     if (shape is None) != (name in UNSHAPED):
         raise ValueError(f"{name} is built {'without' if name in UNSHAPED else 'with'} a shape")
     if shape is not None:
         check_trunk_shape(*shape)
+        shape = (shape[0], padded_channels(shape[1]))
     src = CSRC_DIR / f"{name}.cu"
     flags = NVCC_FLAGS if shape is None else (*NVCC_FLAGS, f"-DTRUNK_S={shape[0]}",
                                                f"-DTRUNK_C={shape[1]}")

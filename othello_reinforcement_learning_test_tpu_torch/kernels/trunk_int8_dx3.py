@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .trunk_matmul9 import OFFSETS
+from .trunk_matmul9 import OFFSETS, at_width, run_at_width, weight_width
 
 DEFAULT_BLOCK_GAMES = 64
 
@@ -107,24 +107,34 @@ def int8_trunk(h: torch.Tensor, taps: torch.Tensor,
     return h
 
 
+def int8_plain_trunk(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
+                     bias: torch.Tensor, block_games: int,
+                     stage_bf16: bool = False) -> torch.Tensor:
+    """The plain version the int8 kernels share: bf16 (B, S, S, C) in, bf16
+    out, any S and C; w as the kernels take it, (L, 9, C_out, C_in), at C or
+    at the kernels' width (x padded to it, the output cut back)."""
+    bg = block_size(x.shape[0], block_games)
+    return run_at_width(x, w.shape[-1], lambda xw: int8_trunk(
+        xw.to(torch.float32), kmajor_taps(w), OFFSETS, w_scale, bias, bg,
+        stage_bf16).to(torch.bfloat16))
+
+
 def trunk_int8_dx3_plain(x: torch.Tensor, w: torch.Tensor,
                          w_scale: torch.Tensor, bias: torch.Tensor,
                          block_games: int = DEFAULT_BLOCK_GAMES) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: bf16 (B, S, S, C) in, bf16 out;
-    w as the kernel takes it, (L, 9, C_out, C_in)."""
-    bg = block_size(x.shape[0], block_games)
-    return int8_trunk(x.to(torch.float32), kmajor_taps(w), OFFSETS,
-                      w_scale, bias, bg).to(torch.bfloat16)
+    """Plain PyTorch version of the kernel (:func:`int8_plain_trunk`)."""
+    return int8_plain_trunk(x, w, w_scale, bias, block_games)
 
 
 def check_int8_args(x, w, w_scale, bias, w_tail) -> int:
     """Check an int8 trunk's arguments; ``w_tail(C)`` is the weights' shape
-    after L. Returns L."""
+    after L, at x's width C or padded (:func:`~.trunk_matmul9.weight_width`).
+    Returns L."""
     if x.dim() != 4 or x.shape[1] != x.shape[2] or x.dtype != torch.bfloat16:
         raise ValueError(f"x must be bf16 (B, S, S, C), got {x.dtype} {tuple(x.shape)}")
-    C = x.shape[3]
-    if w.dim() != 1 + len(w_tail(C)) or w.shape[1:] != w_tail(C) or w.dtype != torch.int8 \
-            or w.shape[0] % 2 or w.shape[0] == 0:
+    C = weight_width(x, w, w_tail)
+    if C is None or w.dtype != torch.int8 or w.shape[0] % 2 or w.shape[0] == 0:
+        C = x.shape[3]
         raise ValueError(f"w must be int8 (L, {', '.join(map(str, w_tail(C)))}) with even "
                          f"L > 0, got {w.dtype} {tuple(w.shape)}")
     L = w.shape[0]
@@ -138,6 +148,30 @@ def check_int8_args(x, w, w_scale, bias, w_tail) -> int:
         if not t.is_contiguous():
             raise ValueError("all tensors must be contiguous")
     return L
+
+
+def int8_at_width(w: torch.Tensor, w_scale: torch.Tensor, bias: torch.Tensor,
+                  width: int) -> tuple:
+    """(L, 9, C_out, C_in) weights, their (L, C) scales and bias with zero
+    channels up to ``width`` (itself where they are there)."""
+    return at_width(w, (2, 3), width), at_width(w_scale, (1,), width), at_width(bias, (1,), width)
+
+
+def int8_forward(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, bias: torch.Tensor,
+                 plain, launch) -> torch.Tensor:
+    """An int8 trunk: ``plain(x, w, w_scale, bias)`` for a tensor on the
+    CPU, ``launch(...)`` for a CUDA one at the kernels' width
+    (:func:`~.build.trunk_shape`, which refuses other shapes first): x and
+    the weights with zero channels up to it, the output cut back to x's.
+    Zero channels leave every per-block amax as it was and quantize to 0,
+    so the output is the same bit for bit."""
+    if x.device.type == "cpu":
+        return plain(x, w, w_scale, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    width = build.trunk_shape(x)[1]
+    w, w_scale, bias = int8_at_width(w, w_scale, bias, width)
+    return run_at_width(x, width, lambda xw: launch(xw, w, w_scale, bias))
 
 
 def int8_library(name: str, prefix: str, x: torch.Tensor, num_flags: int = 0) -> ctypes.CDLL:
@@ -202,18 +236,23 @@ def trunk_int8_dx3(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
     int8 K-major weights (:func:`dx3_kmajor` of the dx3 layout); w_scale,
     bias: (L, C) f32. Returns bf16 (B, S, S, C).
 
+    The weights, scales and bias may be at the kernels' width instead, C
+    rounded up to 16 with zero channels (``FusedInference`` pads them once).
+
     On a CUDA tensor this launches the hand-written kernel (one launch per
-    conv, each counted in ``trunk_int8_dx3.launches``) or raises; the plain
+    conv, each counted in ``trunk_int8_dx3.launches``; x with zero channels
+    up to the library's width, :func:`int8_forward`) or raises; the plain
     version runs only for a tensor on the CPU.
     """
     check_int8_args(x, w, w_scale, bias, lambda C: (9, C, C))
-    if x.device.type == "cpu":
-        return trunk_int8_dx3_plain(x, w, w_scale, bias, block_games)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    lib = int8_library("trunk_int8_dx3", "trunk_dx3", x)
-    return launch_int8_trunk(trunk_int8_dx3, lib.trunk_dx3_prepass, lib.trunk_dx3_conv,
-                             x, w, w_scale, bias, block_games)
+
+    def launch(xw, *args):
+        lib = int8_library("trunk_int8_dx3", "trunk_dx3", xw)
+        return launch_int8_trunk(trunk_int8_dx3, lib.trunk_dx3_prepass, lib.trunk_dx3_conv,
+                                 xw, *args, block_games)
+
+    return int8_forward(x, w, w_scale, bias,
+                        lambda *a: trunk_int8_dx3_plain(*a, block_games), launch)
 
 
 trunk_int8_dx3.launches = 0

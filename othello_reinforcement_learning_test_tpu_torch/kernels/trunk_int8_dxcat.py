@@ -25,8 +25,7 @@ import ctypes
 import torch
 
 from . import build
-from .trunk_int8_dx3 import block_size, check_int8_args, int8_trunk, kmajor_taps
-from .trunk_matmul9 import OFFSETS
+from .trunk_int8_dx3 import block_size, check_int8_args, int8_forward, int8_plain_trunk
 
 DEFAULT_BLOCK_GAMES = 64  # the JAX package's FusedInference default for int8_dxcat
 LAUNCHES_PER_FORWARD = 1  # the whole trunk in one launch
@@ -44,11 +43,9 @@ def dxcat_kmajor(w: torch.Tensor) -> torch.Tensor:
 def trunk_int8_dxcat_plain(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
                            bias: torch.Tensor,
                            block_games: int = DEFAULT_BLOCK_GAMES) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: bf16 (B, S, S, C) in, bf16 out,
-    any S and C; w as the kernel takes it, (L, 9, C_out, C_in)."""
-    bg = block_size(x.shape[0], block_games)
-    return int8_trunk(x.to(torch.float32), kmajor_taps(w), OFFSETS, w_scale, bias,
-                      bg).to(torch.bfloat16)
+    """Plain PyTorch version of the kernel
+    (:func:`~.trunk_int8_dx3.int8_plain_trunk`)."""
+    return int8_plain_trunk(x, w, w_scale, bias, block_games)
 
 
 def _library(x: torch.Tensor) -> ctypes.CDLL:
@@ -62,24 +59,10 @@ def _library(x: torch.Tensor) -> ctypes.CDLL:
     return lib
 
 
-def trunk_int8_dxcat(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
-                     bias: torch.Tensor,
-                     block_games: int = DEFAULT_BLOCK_GAMES) -> torch.Tensor:
-    """Int8 residual trunk. x: (B, S, S, C) bf16; w: (L, 9, C_out, C_in)
-    int8 K-major weights (:func:`dxcat_kmajor` of the dxcat layout);
-    w_scale, bias: (L, C) f32. Returns bf16 (B, S, S, C).
-
-    On a CUDA tensor this makes one host call that launches the hand-written
-    kernel once for the whole trunk (counted in
-    ``trunk_int8_dxcat.launches``; the shapes of
-    :func:`~.build.check_trunk_shape`) or raises; the plain version runs
-    only for a tensor on the CPU.
-    """
-    check_int8_args(x, w, w_scale, bias, lambda C: (9, C, C))
-    if x.device.type == "cpu":
-        return trunk_int8_dxcat_plain(x, w, w_scale, bias, block_games)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+def _launch(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, bias: torch.Tensor,
+            block_games: int) -> torch.Tensor:
+    """One host call, one launch of the kernel for the whole trunk, at x's
+    (the library's) width."""
     lib = _library(x)
     B, S, _, C = x.shape
     L = w.shape[0]
@@ -98,6 +81,27 @@ def trunk_int8_dxcat(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
             raise RuntimeError(f"trunk_int8_dxcat failed: CUDA error {rc}")
         trunk_int8_dxcat.launches += LAUNCHES_PER_FORWARD
     return out
+
+
+def trunk_int8_dxcat(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
+                     bias: torch.Tensor,
+                     block_games: int = DEFAULT_BLOCK_GAMES) -> torch.Tensor:
+    """Int8 residual trunk. x: (B, S, S, C) bf16; w: (L, 9, C_out, C_in)
+    int8 K-major weights (:func:`dxcat_kmajor` of the dxcat layout);
+    w_scale, bias: (L, C) f32. Returns bf16 (B, S, S, C).
+
+    On a CUDA tensor this makes one host call that launches the hand-written
+    kernel once for the whole trunk (counted in
+    ``trunk_int8_dxcat.launches``; the shapes of
+    :func:`~.build.check_trunk_shape`, x with zero channels up to the
+    library's width and the output cut back) or raises; the plain version
+    runs only for a tensor on the CPU. The weights, scales and bias may be
+    at that width already (``FusedInference`` pads them once).
+    """
+    check_int8_args(x, w, w_scale, bias, lambda C: (9, C, C))
+    return int8_forward(x, w, w_scale, bias,
+                        lambda *a: trunk_int8_dxcat_plain(*a, block_games),
+                        lambda *a: _launch(*a, block_games))
 
 
 trunk_int8_dxcat.launches = 0

@@ -23,9 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from .trunk_int8_dx3 import (block_size, check_int8_args, int8_library, int8_trunk,
-                             kmajor_taps, launch_int8_trunk)
-from .trunk_matmul9 import OFFSETS
+from .trunk_int8_dx3 import (check_int8_args, int8_forward, int8_library, int8_plain_trunk,
+                             launch_int8_trunk)
 
 DEFAULT_BLOCK_GAMES = 32  # the JAX package's FusedInference default for int8_patch
 
@@ -41,11 +40,9 @@ def patch_kmajor(w: torch.Tensor) -> torch.Tensor:
 def trunk_int8_patch_plain(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
                            bias: torch.Tensor,
                            block_games: int = DEFAULT_BLOCK_GAMES) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: bf16 (B, S, S, C) in, bf16 out,
-    any S and C; w as the kernel takes it, (L, 9, C_out, C_in)."""
-    bg = block_size(x.shape[0], block_games)
-    return int8_trunk(x.to(torch.float32), kmajor_taps(w), OFFSETS, w_scale, bias,
-                      bg).to(torch.bfloat16)
+    """Plain PyTorch version of the kernel
+    (:func:`~.trunk_int8_dx3.int8_plain_trunk`)."""
+    return int8_plain_trunk(x, w, w_scale, bias, block_games)
 
 
 def trunk_int8_patch(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
@@ -56,17 +53,20 @@ def trunk_int8_patch(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
 
     On a CUDA tensor this launches the hand-written kernel (one launch per
     conv, each counted in ``trunk_int8_patch.launches``; the shapes of
-    :func:`~.build.check_trunk_shape`) or raises; the plain version runs
-    only for a tensor on the CPU.
+    :func:`~.build.check_trunk_shape`, x with zero channels up to the
+    library's width and the output cut back) or raises; the plain version
+    runs only for a tensor on the CPU. The weights, scales and bias may be
+    at that width already (``FusedInference`` pads them once).
     """
     check_int8_args(x, w, w_scale, bias, lambda C: (9, C, C))
-    if x.device.type == "cpu":
-        return trunk_int8_patch_plain(x, w, w_scale, bias, block_games)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    lib = int8_library("trunk_int8_patch", "trunk_patch", x)
-    return launch_int8_trunk(trunk_int8_patch, lib.trunk_patch_prepass, lib.trunk_patch_conv,
-                             x, w, w_scale, bias, block_games)
+
+    def launch(xw, *args):
+        lib = int8_library("trunk_int8_patch", "trunk_patch", xw)
+        return launch_int8_trunk(trunk_int8_patch, lib.trunk_patch_prepass, lib.trunk_patch_conv,
+                                 xw, *args, block_games)
+
+    return int8_forward(x, w, w_scale, bias, lambda *a: trunk_int8_patch_plain(*a, block_games),
+                        launch)
 
 
 trunk_int8_patch.launches = 0

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +27,40 @@ from . import build
 
 # 3x3 neighbourhood offsets, row-major as the HWIO kernel's (kh, kw) axes
 OFFSETS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+
+
+def weight_width(x: torch.Tensor, w: torch.Tensor, w_tail) -> Optional[int]:
+    """The channel width of a trunk's weights: x's own C, or the kernels'
+    width (C rounded up to 16, :func:`~.build.padded_channels`) where they
+    were padded with zero channels once (``FusedInference``); None if
+    ``w.shape[1:]`` is ``w_tail`` of neither."""
+    C = x.shape[3]
+    for width in (C, build.padded_channels(C)):
+        if w.dim() == 1 + len(w_tail(width)) and tuple(w.shape[1:]) == w_tail(width):
+            return width
+    return None
+
+
+def at_width(t: torch.Tensor, dims: Sequence[int], width: int) -> torch.Tensor:
+    """``t`` with zeros appended along each of ``dims`` up to ``width``
+    (itself where it is there): zero channels add exact zeros to every sum,
+    quantize to 0 and stay 0 through a zero bias and ReLU."""
+    pad = [0] * (2 * t.dim())
+    for d in dims:
+        pad[2 * (t.dim() - 1 - d) + 1] = width - t.shape[d]
+    return F.pad(t, pad) if any(pad) else t
+
+
+def run_at_width(x: torch.Tensor, width: int, fn: Callable[..., torch.Tensor],
+                 *like_x: Optional[torch.Tensor]) -> torch.Tensor:
+    """``fn(x, *like_x)`` with x (B, S, S, C) and the tensors shaped like it
+    (None stays None) given zero channels up to ``width``, the output cut
+    back to C channels."""
+    C = x.shape[3]
+    if width == C:
+        return fn(x, *like_x)
+    pad = [None if t is None else at_width(t, (3,), width) for t in (x, *like_x)]
+    return fn(*pad)[..., :C].contiguous()
 
 
 def conv3x3(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -46,11 +80,14 @@ def conv3x3(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tenso
 def conv_plain(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                resid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One conv with its epilogue, bf16 out: ``relu(acc)`` for the first
-    conv of a block, ``relu(f32(resid) + acc)`` for the second."""
-    z = conv3x3(h, w, bias)
-    if resid is not None:
-        z = resid.to(torch.float32) + z
-    return torch.relu(z).to(torch.bfloat16)
+    conv of a block, ``relu(f32(resid) + acc)`` for the second. w and bias
+    may be at the kernels' width (h and resid are padded to it)."""
+    def conv(hw, rw):
+        z = conv3x3(hw, w, bias)
+        if rw is not None:
+            z = rw.to(torch.float32) + z
+        return torch.relu(z).to(torch.bfloat16)
+    return run_at_width(h, bias.shape[-1], conv, resid)
 
 
 def sum_error_bound(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -59,29 +96,34 @@ def sum_error_bound(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> tor
     errs by at most n * 2^-24 * sum|terms| (the standard bound for a
     floating-point sum), so two of them by twice that. sum|terms| is the
     same conv on absolute values. Near an output of zero this exceeds
-    PyTorch's bf16 ``atol`` of 1e-5, whatever the two summation orders are."""
-    n = 9 * h.shape[-1] + 10
-    return 2 * n * 2.0 ** -24 * conv3x3(h.abs(), w.abs(), bias.abs())
+    PyTorch's bf16 ``atol`` of 1e-5, whatever the two summation orders are.
+    At the weights' width, C rounded up to 16 where they are padded."""
+    n = 9 * bias.shape[-1] + 10
+    return run_at_width(h, bias.shape[-1],
+                        lambda hw: 2 * n * 2.0 ** -24 * conv3x3(hw.abs(), w.abs(), bias.abs()))
 
 
 def trunk_matmul9_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: bf16 (B, S, S, C) in, bf16 out."""
-    h = x
-    for i in range(w.shape[0] // 2):
-        y = conv_plain(h, w[2 * i], bias[2 * i])
-        h = conv_plain(y, w[2 * i + 1], bias[2 * i + 1], resid=h)
-    return h
+    """Plain PyTorch version of the kernel: bf16 (B, S, S, C) in, bf16 out;
+    w and bias at C or at the kernels' width."""
+    def trunk(h):
+        for i in range(w.shape[0] // 2):
+            y = conv_plain(h, w[2 * i], bias[2 * i])
+            h = conv_plain(y, w[2 * i + 1], bias[2 * i + 1], resid=h)
+        return h
+    return run_at_width(x, bias.shape[-1], trunk)
 
 
 def check_bf16_args(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, w_tail,
                     blocks: bool = True) -> int:
     """Check a bf16 trunk's (or, with ``blocks=False``, one conv's)
-    arguments; ``w_tail(C)`` is the weights' shape after L. Returns L."""
+    arguments; ``w_tail(C)`` is the weights' shape after L, at x's width C or
+    padded (:func:`weight_width`). Returns L."""
     if x.dim() != 4 or x.shape[1] != x.shape[2] or x.dtype != torch.bfloat16:
         raise ValueError(f"x must be bf16 (B, S, S, C), got {x.dtype} {tuple(x.shape)}")
-    C = x.shape[3]
-    if w.dim() != 1 + len(w_tail(C)) or w.shape[1:] != w_tail(C) or w.dtype != torch.bfloat16 \
-            or (blocks and w.shape[0] % 2) or w.shape[0] == 0:
+    C = weight_width(x, w, w_tail)
+    if C is None or w.dtype != torch.bfloat16 or (blocks and w.shape[0] % 2) or w.shape[0] == 0:
+        C = x.shape[3]
         raise ValueError(f"w must be bf16 (L, {', '.join(map(str, w_tail(C)))}) with even "
                          f"L > 0, got {w.dtype} {tuple(w.shape)}")
     L = w.shape[0]
@@ -143,11 +185,31 @@ def launch_bf16_trunk(wrapper, fn, x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def launch_bf16_one_conv(wrapper, fn, h, w, bias, resid) -> torch.Tensor:
-    """One conv with its epilogue on the card (after checking ``resid``)."""
+def check_resid(h: torch.Tensor, resid: Optional[torch.Tensor]) -> None:
     if resid is not None and (resid.shape != h.shape or resid.dtype != h.dtype
                               or resid.device != h.device or not resid.is_contiguous()):
         raise ValueError("resid must be a contiguous tensor like h")
+
+
+def bf16_forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, w_at_width,
+                 plain, launch, resid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A bf16 trunk (or one conv, with ``resid``): ``plain(x, w, bias[,
+    resid])`` for a tensor on the CPU, ``launch(...)`` for a CUDA one at the
+    kernels' width (:func:`~.build.trunk_shape`, which refuses other shapes
+    first): x (and resid) with zero channels up to it, the weights by
+    ``w_at_width(w, width)``, the output cut back to x's."""
+    check_resid(x, resid)
+    if x.device.type == "cpu":
+        return plain(x, w, bias) if resid is None else plain(x, w, bias, resid)
+    width = build.trunk_shape(x)[1]
+    w, bias = w_at_width(w, width), at_width(bias, (bias.dim() - 1,), width)
+    if resid is None:
+        return run_at_width(x, width, lambda xw: launch(xw, w, bias))
+    return run_at_width(x, width, lambda xw, rw: launch(xw, w, bias, rw), resid)
+
+
+def launch_bf16_one_conv(wrapper, fn, h, w, bias, resid) -> torch.Tensor:
+    """One conv with its epilogue on the card."""
     with torch.cuda.device(h.device):
         out = torch.empty_like(h)
         launch_bf16_conv(wrapper, fn, torch.cuda.current_stream().cuda_stream, h.shape[0],
@@ -160,19 +222,30 @@ def _hwio(C: int) -> tuple:
     return (3, 3, C, C)
 
 
+def hwio_at_width(w: torch.Tensor, width: int) -> torch.Tensor:
+    """(..., 3, 3, C, C) HWIO weights with zero channels in and out up to
+    ``width``."""
+    return at_width(w, (w.dim() - 2, w.dim() - 1), width)
+
+
 def trunk_matmul9(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """bf16 residual trunk. x: (B, S, S, C) bf16; w: (L, 3, 3, C, C) bf16
     folded weights (HWIO); bias: (L, C) f32. Returns bf16 (B, S, S, C).
+    The weights and bias may be at the kernels' width instead, C rounded up
+    to 16 with zero channels (``FusedInference`` pads them once).
 
     On a CUDA tensor this launches the hand-written kernel (one launch per
-    conv, each counted in ``trunk_matmul9.launches``) or raises; the plain
-    version runs only for a tensor on the CPU.
+    conv, each counted in ``trunk_matmul9.launches``; x with zero channels
+    up to the width of :func:`~.build.trunk_shape`, the output cut back) or
+    raises; the plain version runs only for a tensor on the CPU.
     """
     check_bf16_args(x, w, bias, _hwio)
-    if x.device.type == "cpu":
-        return trunk_matmul9_plain(x, w, bias)
-    return launch_bf16_trunk(trunk_matmul9, bf16_conv_function(
-        "trunk_matmul9", "trunk_m9_conv", build.trunk_shape(x)), x, w, bias)
+
+    def launch(xw, ww, bw):
+        return launch_bf16_trunk(trunk_matmul9, bf16_conv_function(
+            "trunk_matmul9", "trunk_m9_conv", build.trunk_shape(xw)), xw, ww, bw)
+
+    return bf16_forward(x, w, bias, hwio_at_width, trunk_matmul9_plain, launch)
 
 
 trunk_matmul9.launches = 0
@@ -186,8 +259,9 @@ def conv_matmul9(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     the plain version for a CPU one. Lets a check hold each conv against
     the plain version on the same input."""
     check_bf16_args(h, w[None], bias[None], _hwio, blocks=False)
-    if h.device.type == "cpu":
-        return conv_plain(h, w, bias, resid)
-    return launch_bf16_one_conv(
-        trunk_matmul9, bf16_conv_function("trunk_matmul9", "trunk_m9_conv", build.trunk_shape(h)),
-        h, w, bias, resid)
+
+    def launch(hw, ww, bw, rw=None):
+        return launch_bf16_one_conv(trunk_matmul9, bf16_conv_function(
+            "trunk_matmul9", "trunk_m9_conv", build.trunk_shape(hw)), hw, ww, bw, rw)
+
+    return bf16_forward(h, w, bias, hwio_at_width, conv_plain, launch, resid)

@@ -33,8 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .trunk_matmul9 import (OFFSETS, bf16_conv_function, check_bf16_args, launch_bf16_one_conv,
-                            launch_bf16_trunk, sum_error_bound)
+from .trunk_matmul9 import (OFFSETS, at_width, bf16_conv_function, bf16_forward, check_bf16_args,
+                            launch_bf16_one_conv, launch_bf16_trunk, run_at_width,
+                            sum_error_bound)
 
 
 def wide_taps(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -69,21 +70,26 @@ def shifted_sum(z: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
 def conv_wide_plain(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                     resid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One conv with its epilogue, bf16 out: ``relu(acc)`` for the first
-    conv of a block, ``relu(f32(resid) + acc)`` for the second."""
-    z = shifted_sum(wide_taps(h, w), bias)
-    if resid is not None:
-        z = resid.to(torch.float32) + z
-    return torch.relu(z).to(torch.bfloat16)
+    conv of a block, ``relu(f32(resid) + acc)`` for the second. w and bias
+    may be at the kernels' width (h and resid are padded to it)."""
+    def conv(hw, rw):
+        z = shifted_sum(wide_taps(hw, w), bias)
+        if rw is not None:
+            z = rw.to(torch.float32) + z
+        return torch.relu(z).to(torch.bfloat16)
+    return run_at_width(h, bias.shape[-1], conv, resid)
 
 
 def trunk_wide_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel: bf16 (B, S, S, C) in, bf16 out,
-    any S and C. w: (L, C, 9C) bf16; bias: (L, C) f32."""
-    h = x
-    for i in range(w.shape[0] // 2):
-        y = conv_wide_plain(h, w[2 * i], bias[2 * i])
-        h = conv_wide_plain(y, w[2 * i + 1], bias[2 * i + 1], resid=h)
-    return h
+    any S and C. w: (L, C, 9C) bf16; bias: (L, C) f32; or both at the
+    kernels' width."""
+    def trunk(h):
+        for i in range(w.shape[0] // 2):
+            y = conv_wide_plain(h, w[2 * i], bias[2 * i])
+            h = conv_wide_plain(y, w[2 * i + 1], bias[2 * i + 1], resid=h)
+        return h
+    return run_at_width(x, bias.shape[-1], trunk)
 
 
 def hwio(w: torch.Tensor) -> torch.Tensor:
@@ -96,11 +102,13 @@ def tap_ulp_bound(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """One bf16 ulp of each tap's product, summed at the output position it
     is added to: how far the kernel's sum may move when each of its nine
     rounded products lies one bf16 ulp from the plain version's. (B, S, S,
-    C) f32."""
-    z = wide_taps(h, w).to(torch.float32).abs()
-    _, exp = torch.frexp(z)  # z = m * 2^exp, 0.5 <= m < 1
-    ulp = torch.where(z > 0, torch.ldexp(torch.ones_like(z), exp - 8), torch.zeros_like(z))
-    return shifted_sum(ulp, torch.zeros(w.shape[0], dtype=torch.float32, device=h.device))
+    C) f32; w at C or at the kernels' width."""
+    def bound(hw):
+        z = wide_taps(hw, w).to(torch.float32).abs()
+        _, exp = torch.frexp(z)  # z = m * 2^exp, 0.5 <= m < 1
+        ulp = torch.where(z > 0, torch.ldexp(torch.ones_like(z), exp - 8), torch.zeros_like(z))
+        return shifted_sum(ulp, torch.zeros(w.shape[0], dtype=torch.float32, device=hw.device))
+    return run_at_width(h, w.shape[0], bound)
 
 
 def conv_bound(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -117,21 +125,37 @@ def _wide(C: int) -> tuple:
     return (C, 9 * C)
 
 
+def wide_at_width(w: torch.Tensor, width: int) -> torch.Tensor:
+    """(..., C, 9C) wide weights with zero channels in and out (in each
+    tap's column block) up to ``width``."""
+    C = w.shape[-2]
+    if width == C:
+        return w
+    w4 = w.reshape(*w.shape[:-2], C, 9, C)
+    return at_width(w4, (w4.dim() - 3, w4.dim() - 1), width).reshape(
+        *w.shape[:-2], width, 9 * width)
+
+
 def trunk_wide(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """bf16 residual trunk. x: (B, S, S, C) bf16; w: (L, C, 9C) bf16 folded
     weights (``fold_block_params_wide``); bias: (L, C) f32. Returns bf16
-    (B, S, S, C).
+    (B, S, S, C). The weights and bias may be at the kernels' width instead,
+    C rounded up to 16 with zero channels (``FusedInference`` pads them
+    once).
 
     On a CUDA tensor this launches the hand-written kernel (one launch per
     conv, each counted in ``trunk_wide.launches``; the shapes of
-    :func:`~.build.check_trunk_shape`) or raises; the plain version runs
-    only for a tensor on the CPU.
+    :func:`~.build.check_trunk_shape`, x with zero channels up to the
+    library's width and the output cut back) or raises; the plain version
+    runs only for a tensor on the CPU.
     """
     check_bf16_args(x, w, bias, _wide)
-    if x.device.type == "cpu":
-        return trunk_wide_plain(x, w, bias)
-    return launch_bf16_trunk(trunk_wide, bf16_conv_function(
-        "trunk_wide", "trunk_wide_conv", build.trunk_shape(x)), x, w, bias)
+
+    def launch(xw, ww, bw):
+        return launch_bf16_trunk(trunk_wide, bf16_conv_function(
+            "trunk_wide", "trunk_wide_conv", build.trunk_shape(xw)), xw, ww, bw)
+
+    return bf16_forward(x, w, bias, wide_at_width, trunk_wide_plain, launch)
 
 
 trunk_wide.launches = 0
@@ -145,8 +169,9 @@ def conv_wide(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     version for a CPU one. Lets a check hold each conv against the plain
     version on the same input."""
     check_bf16_args(h, w[None], bias[None], _wide, blocks=False)
-    if h.device.type == "cpu":
-        return conv_wide_plain(h, w, bias, resid)
-    return launch_bf16_one_conv(
-        trunk_wide, bf16_conv_function("trunk_wide", "trunk_wide_conv", build.trunk_shape(h)),
-        h, w, bias, resid)
+
+    def launch(hw, ww, bw, rw=None):
+        return launch_bf16_one_conv(trunk_wide, bf16_conv_function(
+            "trunk_wide", "trunk_wide_conv", build.trunk_shape(hw)), hw, ww, bw, rw)
+
+    return bf16_forward(h, w, bias, wide_at_width, conv_wide_plain, launch, resid)

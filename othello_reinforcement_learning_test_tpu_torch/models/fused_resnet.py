@@ -24,14 +24,15 @@ from typing import Tuple
 
 import torch
 
+from ..kernels import build
 from ..kernels.trunk_int8 import kmajor_weights, tap_major, trunk_int8
-from ..kernels.trunk_int8_dx3 import dx3_kmajor, trunk_int8_dx3
+from ..kernels.trunk_int8_dx3 import dx3_kmajor, int8_at_width, trunk_int8_dx3
 from ..kernels.trunk_int8_dxcat import dxcat_kmajor, trunk_int8_dxcat
 from ..kernels.trunk_int8_flat import trunk_int8_flat
 from ..kernels.trunk_int8_m9 import m9_kmajor, trunk_int8_m9
 from ..kernels.trunk_int8_patch import patch_kmajor, trunk_int8_patch
-from ..kernels.trunk_matmul9 import trunk_matmul9
-from ..kernels.trunk_wide import trunk_wide
+from ..kernels.trunk_matmul9 import at_width, hwio_at_width, trunk_matmul9
+from ..kernels.trunk_wide import trunk_wide, wide_at_width
 from .resnet import OthelloResNet
 
 BN_EPS = 1e-5
@@ -157,6 +158,12 @@ class FusedInference:
       (L, 9, C_out, C_in) layout of the int8 wgmma kernels, each relaid out
       from the JAX package's layout for that variant; ``int8_bf16`` rounds
       each tap's product to bf16.
+
+    At a width C that is not a multiple of 16 the kernel variants' weights,
+    scales and biases are padded here, once, with zero channels to the
+    kernels' width (:func:`~..kernels.build.padded_channels`); each trunk
+    call pads only the activations and cuts its output back to C channels.
+    Zero channels change no output value.
     """
 
     def __init__(self, model: OthelloResNet, variant: str = "int8_dx3",
@@ -184,6 +191,14 @@ class FusedInference:
                 fold = fold_block_params_wide if variant == "wide" else fold_block_params
                 w, b = fold(model)
                 self.trunk_w, self.trunk_bias = w.contiguous(), b.contiguous()
+            width = build.padded_channels(model.num_filters)
+            if variant in INT8_KERNELS:
+                self.trunk_w, self.trunk_scale, self.trunk_bias = int8_at_width(
+                    self.trunk_w, self.trunk_scale, self.trunk_bias, width)
+            elif variant in ("matmul9", "wide"):
+                self.trunk_w = (wide_at_width if variant == "wide" else hwio_at_width)(
+                    self.trunk_w, width)
+                self.trunk_bias = at_width(self.trunk_bias, (1,), width)
             ph, vh = model.policy_head, model.value_head
             self.p_conv = ph.conv.weight[:, :, 0, 0].t().to(bf16)  # (C, 2)
             self.p_g, self.p_b = _bn_affine(ph.bn)

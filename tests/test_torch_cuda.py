@@ -32,8 +32,12 @@ Without a card every test skips. Tolerances:
 The same bars hold every trunk at other board sides and widths (6x6 with 64
 channels, 8x8 with 32, 4x4 with 16; ``matmul9``, ``int8_dx3`` and
 ``int8_dxcat`` also at widths that are no whole k32 step or whose weight
-rows are below 128 bytes); a shape outside the set the kernels take is
-refused before a launch.
+rows are below 128 bytes), past 128 channels where the kernels stream their
+weights (8x8 with 256, and 4x4 with 144, 8x8 with 208, 6x6 with 176 for the
+three bodies' trunks) and at a width that is no multiple of 16 (6x6 with 40, run at 48
+with zero channels); the forward at 8x8 x 256 and 6x6 x 40 as at 6x6 x 64;
+a shape outside the set the kernels take (past 256 channels, other board
+sides) is refused before a launch.
 """
 
 import numpy as np
@@ -219,14 +223,14 @@ def test_trunk_int8_matches_plain(fused_int8, batch, stage_bf16):
 
 @pytest.mark.cuda
 def test_trunk_int8_refuses_other_shapes(fused_int8):
-    """256 channels (a layer's int8 weights, 9 x 256^2 bytes, do not fit one
-    CTA): refused before any launch, naming the shapes the kernels take."""
-    C = 256
+    """272 channels (past the 256 the streamed kernels take): refused before
+    any launch, naming the shapes the kernels take."""
+    C = 272
     x = torch.zeros((4, 8, 8, C), dtype=torch.bfloat16, device="cuda")
     args = (torch.zeros((2, 9, C, C), dtype=torch.int8, device="cuda"),
             torch.ones((2, C), device="cuda"), torch.zeros((2, C), device="cuda"))
     before = trunk_int8.launches
-    with pytest.raises(ValueError, match="multiples of 16 from 16 to 128"):
+    with pytest.raises(ValueError, match="channel counts from 1 to 256"):
         trunk_int8(x, *args)
     assert trunk_int8.launches == before
 
@@ -444,8 +448,9 @@ def test_wide_fused_inference_matches_plain_trunk(fused_wide):
 # (board side, channels) every trunk is checked at, and the widths whose
 # K (16, 48, 80, 112: not a whole k32 step), weight panels (below 128-byte
 # rows) or one-launch split differ, for the three bodies' trunks
-MAIN_SHAPES = [(6, 64), (8, 32), (4, 16)]
-ODD_SHAPES = [(6, 48), (4, 80), (8, 96), (6, 112), (4, 128), (8, 16)]
+MAIN_SHAPES = [(6, 64), (8, 32), (4, 16), (8, 256), (6, 40)]
+ODD_SHAPES = [(6, 48), (4, 80), (8, 96), (6, 112), (4, 128), (8, 16), (4, 144), (8, 208),
+              (6, 176)]
 BODY_TRUNKS = ("matmul9", "int8_dx3", "int8_dxcat")
 ALL_TRUNKS = ("matmul9", "wide", "int8", "int8_bf16", "int8_m9", "int8_patch", "int8_flat",
               "int8_dx3", "int8_dxcat")
@@ -536,13 +541,15 @@ def test_trunks_at_other_shapes_match_plain(shaped, variant, size, channels, bat
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("size,channels", [(6, 64), (8, 256), (6, 40)])
 @pytest.mark.parametrize("variant", ALL_TRUNKS)
-def test_fused_inference_at_6x6_matches_plain_trunk(shaped, variant):
-    """The debug_6x6 width (64 channels) through FusedInference: the int8
-    trunks equal to the plain trunk's forward, the bf16 ones within the
-    JAX package's bar (probs 0.03, value 0.05)."""
-    fused = shaped(variant, 6, 64)
-    x = torch.from_numpy(np.random.default_rng(6).integers(0, 2, (64, 6, 6, 3))
+def test_fused_inference_at_6x6_matches_plain_trunk(shaped, variant, size, channels):
+    """The debug_6x6 width (64 channels), 256 channels at 8x8 and 40 at 6x6
+    (weights padded to 48 once) through FusedInference: the int8 trunks
+    equal to the plain trunk's forward, the bf16 ones within the JAX
+    package's bar (probs 0.03, value 0.05)."""
+    fused = shaped(variant, size, channels)
+    x = torch.from_numpy(np.random.default_rng(6).integers(0, 2, (64, size, size, 3))
                          .astype(np.float32)).cuda()
     lp, v = fused(x)
     plain = {"matmul9": trunk_matmul9_plain, "wide": trunk_wide_plain}
@@ -558,12 +565,12 @@ def test_fused_inference_at_6x6_matches_plain_trunk(shaped, variant):
         lp_p, v_p = fused.heads(plain(h, fused.trunk_w, fused.trunk_scale, fused.trunk_bias,
                                       **kw))
         assert torch.equal(lp, lp_p) and torch.equal(v, v_p)
-    assert lp.shape == (64, 37) and v.shape == (64, 1)
+    assert lp.shape == (64, size * size + 1) and v.shape == (64, 1)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ALL_TRUNKS)
-@pytest.mark.parametrize("size,channels", [(8, 256), (5, 64), (6, 40)])
+@pytest.mark.parametrize("size,channels", [(8, 272), (5, 64), (6, 512)])
 def test_trunks_refuse_other_shapes_before_a_launch(variant, size, channels):
     """Shapes outside the set: a ValueError naming it, no launch."""
     if not torch.cuda.is_available():

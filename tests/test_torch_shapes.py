@@ -10,13 +10,17 @@ channels that the JAX trunks run, against the JAX package on the CPU:
 - ``play_games`` at 6x6 through ``int8_dx3`` (2 blocks x 16 channels)
   against JAX ``play_games`` with the JAX ``FusedInference``, game for game;
 - the shape check the CUDA trunks share (``kernels/build.py``): every board
-  side 4, 6, 8 with every multiple of 16 from 16 to 128 channels accepted,
-  other sides and widths refused, and a library only ever built at a shape;
+  side 4, 6, 8 with every multiple of 16 up to 256 channels and widths
+  between them (8, 40, 200; built at the next multiple of 16) accepted,
+  other sides and widths (0, past 256) refused, and a library only ever
+  built at a shape;
 - the port's ``bench --mode mcts`` at the ``debug_6x6`` network (6x6, 5x64)
   through ``int8_dx3`` on the CPU.
 
 The CUDA kernels themselves are held to these plain versions on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase ``shapes``).
+(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase ``shapes``);
+8x8 with 256 channels, widths that are no multiple of 16 and the numpy
+reference of the int8 trunk are ``tests/test_torch_wide.py``'s.
 """
 
 import sys
@@ -154,20 +158,24 @@ def test_play_games_at_6x6_matches_jax_with_int8_dx3():
     assert_same_trajectory(tt, jt)
 
 
-@pytest.mark.parametrize("channels", range(16, 129, 16))
+@pytest.mark.parametrize("channels", [*range(16, 257, 16), 8, 40, 200])
 @pytest.mark.parametrize("size", [4, 6, 8])
 def test_trunk_shape_check_accepts(size, channels):
+    """Every multiple of 16 up to 256 and widths between them: the library
+    is built at the width rounded up to 16."""
     build.check_trunk_shape(size, channels)
-    assert build.trunk_shape(torch.empty(2, size, size, channels)) == (size, channels)
+    padded = -(-channels // 16) * 16
+    assert build.padded_channels(channels) == padded
+    assert build.trunk_shape(torch.empty(2, size, size, channels)) == (size, padded)
 
 
-@pytest.mark.parametrize("size,channels", [(8, 8), (8, 40), (8, 256), (6, 8), (4, 40),
-                                           (6, 256), (5, 64), (10, 64), (5, 16), (10, 128)])
+@pytest.mark.parametrize("size,channels", [(8, 272), (8, 0), (8, 512), (6, 512), (4, 257),
+                                           (6, 1024), (5, 64), (10, 64), (5, 16), (10, 128)])
 def test_trunk_shape_check_refuses(size, channels):
-    """C in {8, 40, 256} and S in {5, 10}: refused with the allowed set named,
-    and no library is built at such a shape."""
-    with pytest.raises(ValueError, match=r"board sides 4, 6, 8 and channel counts that are "
-                                         r"multiples of 16 from 16 to 128"):
+    """C in {0, 257, 272, 512, 1024} and S in {5, 10}: refused with the
+    allowed set named, and no library is built at such a shape."""
+    with pytest.raises(ValueError, match=r"board sides 4, 6, 8 and channel counts from 1 "
+                                         r"to 256"):
         build.check_trunk_shape(size, channels)
     with pytest.raises(ValueError, match="board sides 4, 6, 8"):
         build.trunk_shape(torch.empty(2, size, size, channels))
