@@ -179,7 +179,8 @@ each as they finish:
                  network at 16 simulations, through one whole game (human
                  moves drawn from numpy, every other ply an AI move, one
                  undo, one hint): every ``state_dict()`` and the hint
-                 identical. (b) A 10x128 port checkpoint from a numpy seed,
+                 identical. (b) The trained flagship r5 network
+                 (``..._torch/trained/``, its file and config sidecar),
                  the stdlib server on a free port over a CUDA session, and
                  the JS client's sequence over HTTP: ``/`` and its scripts,
                  the model list (holding the checkpoint), load-model,
@@ -199,6 +200,33 @@ each as they finish:
                  ``tests/fake_tk.py`` with the checkpoint: a click, the
                  AI's reply through its thread and ``root.after``, a hint;
                  the draw operations and button states checked;
+   trained       the repo's trained networks (``..._torch/trained/``:
+                 flagship r5 and 500iter, 10x128, converted from the JAX
+                 package's checkpoints) on the card, on 1024 positions after
+                 20 random plies: each network's kernels at the gates of
+                 the seeded weights (``int8_dx3``, ``trunk_int8`` both
+                 settings, ``int8_m9``, ``_patch``, ``_flat``, ``_dxcat``
+                 bit for bit at B=1024 and 64; ``matmul9`` and ``wide``
+                 equal to their 20 convs, each conv within its bar, the
+                 forward within probs 0.03 / value 0.05 or, past that,
+                 twice the largest drift of the plain version's two
+                 witnesses, other correct f32 orders); each of the ten
+                 variants' forward against the plain bf16 forward at
+                 B=1024 and 64: top legal move agreement >= 0.9, value
+                 correlation > 0.95 (the JAX package's bars for quantized
+                 inference), its kernel launched 20 times a forward
+                 (``int8_dxcat`` once, ``int8_xla`` none); flagship r5 as
+                 ``MCTSPlayer`` (bf16, 100 simulations) against Greedy, 50
+                 games at 4 random opening plies through
+                 ``Arena.play_matches``, the protocol of its JAX record
+                 (46-4): at least 40 wins; then ``cli train`` on
+                 ``configs/run_500iter_prioritized.yaml`` and
+                 ``run_500iter_symaug.yaml`` read with the port's YAML
+                 reader and cut to one iteration of 64 games at 8
+                 simulations through ``int8_dx3``, 2 SGD steps and a
+                 checkpoint: launches 20 x forwards, the reloaded
+                 prioritized buffer's priorities finite, positive and moved,
+                 augmentation on under the standard rules;
 9. bench         the port's ``bench.py --mode all --repeats 1`` in process,
                  its JSON line printed (random self-play through
                  ``random_step``, one launch a ply; self-play through
@@ -248,7 +276,8 @@ each as they finish:
                  variant's ms a forward at 8x8 x 256, B=1024, 20 convs,
                  beside its operations bound, the int8 f32 bytes floor and
                  the bf16 ones' cuDNN tower; ``int8_dxcat`` also at B=64
-                 and 40;
+                 and 40 (its device time from CUDA events: the profiler
+                 does not trace its cooperative launch);
 10. profile      one ply's search at B=1024 under torch.profiler: wall
                  time, device-busy time and idle share, time by kernel;
 11. timing       the eight trunk kernels and their plain versions at B=1024
@@ -267,7 +296,8 @@ each as they finish:
 
 Then one ``{"kernels": [...]}`` JSON line (each kernel with the shapes it
 was checked at: [board side, channels], ``random_step`` its board sides;
-each trunk's ms a forward at 8x8 x 256 beside that shape's bound),
+each trunk's ms a forward at 8x8 x 256 beside that shape's bound, and
+its largest difference to its plain version on the trained networks),
 the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero; without CUDA it exits non-zero before any phase.
@@ -291,7 +321,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from othello_reinforcement_learning_test_tpu_torch import bench, benchmark, benchmark_model, cli
+from othello_reinforcement_learning_test_tpu_torch import (
+    bench,
+    benchmark,
+    benchmark_model,
+    cli,
+    trained,
+)
 from othello_reinforcement_learning_test_tpu_torch.apps.web.game_manager import GameManager
 from othello_reinforcement_learning_test_tpu_torch.apps.web.server import make_server
 from othello_reinforcement_learning_test_tpu_torch.kernels import build
@@ -349,13 +385,15 @@ from othello_reinforcement_learning_test_tpu_torch.models.convert import (
     init_train_variables,
 )
 from othello_reinforcement_learning_test_tpu_torch.models.export import load_exported
-from othello_reinforcement_learning_test_tpu_torch.models.fused_resnet import FusedInference
+from othello_reinforcement_learning_test_tpu_torch.models.fused_resnet import (
+    PORTED_VARIANTS,
+    FusedInference,
+)
 from othello_reinforcement_learning_test_tpu_torch.models.resnet import OthelloResNet
 from othello_reinforcement_learning_test_tpu_torch.models.torch_bridge import infer_architecture
 from othello_reinforcement_learning_test_tpu_torch.ops import fused_step
 from othello_reinforcement_learning_test_tpu_torch.ops.bitboard import get_engine
 from othello_reinforcement_learning_test_tpu_torch.search import mcts
-from othello_reinforcement_learning_test_tpu_torch.train import checkpoint as ckpt_lib
 from othello_reinforcement_learning_test_tpu_torch.train import trainer as trainer_lib
 from othello_reinforcement_learning_test_tpu_torch.train.self_play import play_games
 from othello_reinforcement_learning_test_tpu_torch.utils.config import load_config, to_yaml
@@ -381,6 +419,7 @@ RANDOM_GAMES = 4194304  # bench.py's random-mode batch with the kernel
 # the int8_dx3 and trunk_int8 checks' batches: 1040 gives bg 16 with more
 # games than two a CTA, 267 an odd count, 256 the cli phase's self-play
 INT8_BATCHES = (GAMES, 1040, 267, 256, 24, 3, 1)
+BF16_BATCHES = (GAMES, 267, 24, 3, 1)  # the matmul9 and wide checks' batches
 # the profiler names of the int8 conv body's launches and the pre-pass,
 # and of the one-launch trunk (int8_dxcat)
 INT8_DEVICE_NAMES = ("int8_conv_kernel", "int8_conv_stream_kernel", "prepass_kernel")
@@ -531,6 +570,29 @@ SHAPES_BENCH = ["--mode", "mcts", "--size", "6", "--filters", "64", "--blocks", 
 WIDE_BENCH = ["--mode", "mcts", "--filters", "256", "--blocks", "10", "--net-variant",
               "int8_dx3", "--batch", "256", "--repeats", "1"]
 WIDE_FILTERS = 256  # the timing rows past 128 channels: 8x8, 10 blocks, B = GAMES
+# phase trained: the repo's trained networks (..._torch/trained/, converted
+# from the JAX package's checkpoints), every trunk kernel held on their
+# weights, each variant's forward against the plain bf16 forward at these
+# batches (top legal move agreement and value correlation at the JAX
+# package's bars for quantized inference, tests/test_int8_strength.py), and
+# flagship r5 against Greedy at the protocol of its JAX record, which must
+# win at least TRAINED_MATCH_WINS of its games (46-4 and 58-2 recorded)
+TRAINED_BATCHES = (GAMES, 64)
+TRAINED_AGREEMENT, TRAINED_VALUE_CORR = 0.9, 0.95
+TRAINED_MATCH_RECORD = ("flagship_r5", "results.Greedy")
+TRAINED_MATCH_WINS = 40
+TRAINED_SCRATCH = build.BUILD_DIR / "chip_smoke_trained"  # git-ignored
+# the two ablation recipes that made committed networks, each through the
+# port's YAML reader cut to one iteration of 64 games in one batch at 8
+# simulations, 2 SGD steps, a checkpoint; self-play through int8_dx3 (the
+# symaug recipe's own variant; the prioritized one plays through the plain
+# forward, so its cut sets it, to put the kernel on the path)
+ABLATIONS = ("run_500iter_prioritized.yaml", "run_500iter_symaug.yaml")
+ABLATION_CUT = {"training": {"self_play_episodes_per_iter": 64, "num_iterations": 1,
+                             "train_epochs_per_iter": 2, "checkpoint_interval": 1},
+                "mcts": {"num_simulations": 8},
+                "self_play": {"num_parallel_games": 64},
+                "system": {"self_play_net_variant": "int8_dx3", "max_recovery_retries": 0}}
 
 
 def launches_per_forward(kernel, layers: int = 2 * NUM_BLOCKS) -> int:
@@ -619,13 +681,34 @@ def trunk_device_ms(fn, names=("bf16_conv_kernel",), reps: int = 10) -> dict:
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                and any(n in e.name for n in names)]
-    if not kernels:
-        return {"device_ms": "not measured"}
+    if not kernels:  # the one-launch trunk's cooperative launch is not traced
+        return event_device_ms(fn, reps)
     start = min(e.time_range.start for e in kernels)
     end = max(e.time_range.end for e in kernels)
     return {"device_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps,
             "device_span_ms": (end - start) / 1e3 / reps,
             "device_launches_per_forward": len(kernels) / reps}
+
+
+def event_device_ms(fn, reps: int = 10) -> dict:
+    """A forward's device time from CUDA events recorded on the stream just
+    before and after each call, the stream held busy ahead of them
+    (``torch.cuda._sleep``) so that the host's enqueue is not timed: what
+    the stream runs between the two events (for ``int8_dxcat`` its memset
+    and its one launch)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)  # about 1 ms of spinning at the boost clock
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return {"device_ms": total / reps, "device_by": "cuda events"}
 
 
 def wgmma_evidence(builds: dict) -> None:
@@ -692,7 +775,7 @@ def matmul9_bound(src, w, b, want):
 
 
 def check_bf16_convs(name, trunk, trunk_plain, conv, conv_ref, bound, fused, feats,
-                     weights: str, batches=(GAMES, 267, 24, 3, 1)) -> float:
+                     weights: str, batches=BF16_BATCHES) -> float:
     """A bf16 trunk kernel against its plain version (see the module
     docstring): the whole trunk equal bit for bit to its 20 convs launched
     one by one, and each conv within ``bound(src, w, b, want)`` of the plain
@@ -742,72 +825,109 @@ def check_bf16_convs(name, trunk, trunk_plain, conv, conv_ref, bound, fused, fea
     return max_abs_err
 
 
-def check_matmul9(fused_m9, feats, weights: str, check_forward: bool) -> float:
-    """The matmul9 kernel against its plain version at B=1024, 267, 24, 3 and 1 (see
-    the module docstring); returns the largest per-conv difference."""
+def plain_witnesses(fused, plain, h, plain_out, w_reversed) -> dict:
+    """Second witnesses of a bf16 trunk's plain version: the same function
+    summing in other correct f32 orders, to show how far two orders drift
+    apart through the 20 convs. On the CPU; and on the card with the nine
+    taps and the input channels of every product summed in reverse order
+    (board and kernel flipped, channels reversed: the same function;
+    ``w_reversed`` is the weights so reversed). Returns {witness:
+    differences to ``plain_out``, the trunk's and the forward's}."""
+    w, b = fused.trunk_w, fused.trunk_bias
+    r = torch.arange(h.shape[-1] - 1, -1, -1, device=h.device)
+    witnesses = {
+        "plain_cpu": plain(h.cpu(), w.cpu(), b.cpu()).to(h.device),
+        "plain_reversed": plain(h.flip(1, 2)[..., r], w_reversed, b[:, r])[..., r].flip(1, 2),
+    }
+    lp_p, v_p = fused.heads(plain_out)
+    fields = {}
+    for wname, other in witnesses.items():
+        lp_o, v_o = fused.heads(other)
+        diff = (plain_out.float() - other.float()).abs()
+        fields[wname] = {"trunk_differing": int((diff != 0).sum()),
+                         "trunk_max_abs_diff": float(diff.max()),
+                         "probs": float((lp_p.exp() - lp_o.exp()).abs().max()),
+                         "value": float((v_p - v_o).abs().max())}
+    return fields
+
+
+def forward_bars(witnesses: dict, from_witnesses: bool) -> tuple:
+    """The bf16 forward's bars (probs, value): 0.03 / 0.05, or where
+    ``from_witnesses`` (trained weights, whose sharp policies move further
+    under a change of summation order) at least twice the largest drift
+    between the plain version and its witnesses."""
+    if not from_witnesses:
+        return 0.03, 0.05
+    return (max(0.03, 2 * max(f["probs"] for f in witnesses.values())),
+            max(0.05, 2 * max(f["value"] for f in witnesses.values())))
+
+
+def check_matmul9(fused_m9, feats, weights: str, check_forward: bool,
+                  witness_bars: bool = False, batches=BF16_BATCHES) -> float:
+    """The matmul9 kernel against its plain version at ``batches`` (see the
+    module docstring); returns the largest per-conv difference.
+    ``witness_bars``: the forward's bars from :func:`forward_bars`."""
     w, b = fused_m9.trunk_w, fused_m9.trunk_bias
     max_abs_err = check_bf16_convs("trunk_matmul9", trunk_matmul9, trunk_matmul9_plain,
                                    conv_matmul9, conv_plain, matmul9_bound, fused_m9, feats,
-                                   weights)
+                                   weights, batches)
     h = fused_m9.stem(feats)
     plain = trunk_matmul9_plain(h, w, b)
     lp_k, v_k = fused_m9(feats)
     lp_p, v_p = fused_m9.heads(plain)
     dp = float((lp_k.exp() - lp_p.exp()).abs().max())
     dv = float((v_k - v_p).abs().max())
-    # second witnesses: the same plain version summing in other correct f32
-    # orders, to show how far two orders drift apart through the 20 convs.
-    # On the CPU; and on the card with the nine taps and the 128 input
-    # channels of every product summed in reverse order (board and kernel
-    # flipped, channels reversed: the same function)
     r = torch.arange(w.shape[-1] - 1, -1, -1, device=h.device)
-    witnesses = {
-        "plain_cpu": trunk_matmul9_plain(h.cpu(), w.cpu(), b.cpu()).to(h.device),
-        "plain_reversed": trunk_matmul9_plain(
-            h.flip(1, 2)[..., r], w.flip(1, 2)[..., r, :][..., r], b[:, r])[..., r].flip(1, 2),
-    }
-    fields = {}
-    for wname, other in witnesses.items():
-        lp_o, v_o = fused_m9.heads(other)
-        diff = (plain.float() - other.float()).abs()
-        fields[wname] = {"trunk_differing": int((diff != 0).sum()),
-                         "trunk_max_abs_diff": float(diff.max()),
-                         "probs": float((lp_p.exp() - lp_o.exp()).abs().max()),
-                         "value": float((v_p - v_o).abs().max())}
+    fields = plain_witnesses(fused_m9, trunk_matmul9_plain, h, plain,
+                             w.flip(1, 2)[..., r, :][..., r])
+    bar_p, bar_v = forward_bars(fields, witness_bars)
     phase("kernel_check", what="FusedInference(matmul9) kernel vs plain trunk", weights=weights,
           batch=feats.shape[0], max_abs_diff_probs=dp, max_abs_diff_value=dv,
-          checked=check_forward, plain_vs=fields)
+          checked=check_forward, bar_probs=bar_p, bar_value=bar_v, plain_vs=fields)
     if check_forward:
-        check(dp <= 0.03 and dv <= 0.05, "FusedInference(matmul9) within probs 0.03, value 0.05")
+        check(dp <= bar_p and dv <= bar_v,
+              f"FusedInference(matmul9) within probs {bar_p}, value {bar_v}")
     return max_abs_err
 
 
-def check_wide(fused_w, feats, weights: str, check_forward: bool) -> float:
-    """The wide kernel against its plain version at B=1024, 267, 24, 3 and 1, conv by
+def check_wide(fused_w, feats, weights: str, check_forward: bool,
+               witness_bars: bool = False, batches=BF16_BATCHES) -> float:
+    """The wide kernel against its plain version at ``batches``, conv by
     conv within ``conv_bound`` (PyTorch's bf16 default, the f32 summation
     bound and one bf16 ulp of each tap's product), the trunk equal to its 20
     convs; FusedInference(wide) against the plain trunk at probs 0.03 /
-    value 0.05 where ``check_forward``. Returns the largest per-conv
-    difference."""
+    value 0.05 where ``check_forward`` (``witness_bars``: the bars of
+    :func:`forward_bars`, the witnesses printed). Returns the largest
+    per-conv difference."""
     err = check_bf16_convs("trunk_wide", trunk_wide, trunk_wide_plain, conv_wide,
-                           conv_wide_plain, conv_bound, fused_w, feats, weights)
+                           conv_wide_plain, conv_bound, fused_w, feats, weights, batches)
+    w, b = fused_w.trunk_w, fused_w.trunk_bias
+    h = fused_w.stem(feats)
+    plain = trunk_wide_plain(h, w, b)
     lp_k, v_k = fused_w(feats)
-    lp_p, v_p = fused_w.heads(trunk_wide_plain(fused_w.stem(feats), fused_w.trunk_w,
-                                               fused_w.trunk_bias))
+    lp_p, v_p = fused_w.heads(plain)
     dp = float((lp_k.exp() - lp_p.exp()).abs().max())
     dv = float((v_k - v_p).abs().max())
+    fields = {}
+    if witness_bars:  # (L, C_in, 9 taps, C_out): taps and both channel axes reversed
+        L, C = w.shape[:2]
+        r = torch.arange(C - 1, -1, -1, device=h.device)
+        fields = plain_witnesses(fused_w, trunk_wide_plain, h, plain,
+                                 w.reshape(L, C, 9, C)[:, r][..., r].flip(2).reshape(L, C, 9 * C))
+    bar_p, bar_v = forward_bars(fields, witness_bars)
     phase("kernel_check", what="FusedInference(wide) kernel vs plain trunk", weights=weights,
           batch=feats.shape[0], max_abs_diff_probs=dp, max_abs_diff_value=dv,
-          checked=check_forward)
+          checked=check_forward, bar_probs=bar_p, bar_value=bar_v, plain_vs=fields)
     if check_forward:
-        check(dp <= 0.03 and dv <= 0.05, "FusedInference(wide) within probs 0.03, value 0.05")
+        check(dp <= bar_p and dv <= bar_v,
+              f"FusedInference(wide) within probs {bar_p}, value {bar_v}")
     return err
 
 
-def check_int8_variants(model, feats) -> dict:
+def check_int8_variants(model, feats, weights: str = "he_normal", batches=None) -> dict:
     """The int8_m9, int8_patch, int8_flat and int8_dxcat kernels against
-    their plain versions at their VARIANT_BATCHES, bit for bit, each call
-    launching launches_per_forward; int8_dxcat also in DXCAT_REPEATS
+    their plain versions at their VARIANT_BATCHES (or ``batches``), bit for
+    bit, each call launching launches_per_forward; int8_dxcat also in DXCAT_REPEATS
     forwards at each of GATE_BATCHES; FusedInference with each kernel
     against the plain trunk. Returns {variant: (largest difference,
     FusedInference)}."""
@@ -816,7 +936,7 @@ def check_int8_variants(model, feats) -> dict:
         fused = FusedInference(model, variant=variant)
         args = (fused.trunk_w, fused.trunk_scale, fused.trunk_bias, fused.block_games)
         err = 0.0
-        for batch in VARIANT_BATCHES[variant]:
+        for batch in batches or VARIANT_BATCHES[variant]:
             h = fused.stem(batch_of(feats, batch))
             before = kernel.launches
             out_k = kernel(h, *args)
@@ -827,7 +947,7 @@ def check_int8_variants(model, feats) -> dict:
             n_diff = int((diff != 0).sum())
             err = max(err, float(diff.max()))
             check(bool(torch.isfinite(out_k.float()).all()), f"finite {variant} output")
-            phase("kernel_check", kernel=kernel.__name__, batch=batch,
+            phase("kernel_check", kernel=kernel.__name__, weights=weights, batch=batch,
                   block_games=block_size(batch, fused.block_games), differing=n_diff,
                   of=out_k.numel(), max_abs_diff=float(diff.max()), launches=launched)
             check(n_diff == 0, f"{kernel.__name__} == plain version at B={batch}")
@@ -838,7 +958,7 @@ def check_int8_variants(model, feats) -> dict:
                 h = fused.stem(feats[:batch])
                 want = plain(h, *args)
                 bad = sum(not torch.equal(kernel(h, *args), want) for _ in range(DXCAT_REPEATS))
-                phase("kernel_check", kernel=kernel.__name__, batch=batch,
+                phase("kernel_check", kernel=kernel.__name__, weights=weights, batch=batch,
                       repeats=DXCAT_REPEATS, forwards_differing=bad)
                 check(bad == 0, f"{kernel.__name__} == plain version in {DXCAT_REPEATS} "
                       f"forwards at B={batch} ({bad} differ)")
@@ -862,7 +982,8 @@ def check_int8_variants(model, feats) -> dict:
             check(torch.equal(kernel(h, *args), plain(h, *args)),
                   f"{kernel.__name__} == plain on weights rewritten at one address ({step})")
     phase("kernel_check", what="int8 conv body libraries on one weight address rewritten",
-          kernels=[INT8_VARIANTS[v][0].__name__ for v in BODY_BG32], rounds=2, equal=True)
+          weights=weights, kernels=[INT8_VARIANTS[v][0].__name__ for v in BODY_BG32],
+          rounds=2, equal=True)
     return out
 
 
@@ -994,15 +1115,47 @@ def train_iteration(dev) -> int:
     return launches
 
 
-def check_trunk_int8(model, feats) -> tuple:
+def check_int8_dx3(fused, feats, weights: str = "he_normal", batches=INT8_BATCHES) -> tuple:
+    """The int8_dx3 kernel against its plain version at each of
+    ``batches``, bit for bit, and FusedInference with it against the plain
+    trunk: equal. Returns (largest difference, the forward's (log_probs,
+    value))."""
+    w, ws, b = fused.trunk_w, fused.trunk_scale, fused.trunk_bias
+    max_abs_err = 0.0
+    for batch in batches:
+        h = fused.stem(batch_of(feats, batch))
+        out_k = trunk_int8_dx3(h, w, ws, b)
+        out_p = trunk_int8_dx3_plain(h, w, ws, b)
+        torch.cuda.synchronize()
+        diff = (out_k.float() - out_p.float()).abs()
+        n_diff, err = int((diff != 0).sum()), float(diff.max())
+        max_abs_err = max(max_abs_err, err)
+        check(bool(torch.isfinite(out_k.float()).all()), "finite trunk output")
+        bad_games = torch.nonzero(diff.reshape(batch, -1).amax(dim=1) > 0).flatten()
+        phase("kernel_check", weights=weights, batch=batch, block_games=block_size(batch),
+              differing=n_diff, of=out_k.numel(), max_abs_diff=err,
+              games_differing=len(bad_games), first_games=bad_games[:8].tolist())
+        check(n_diff == 0, f"trunk kernel == plain version at B={batch} "
+              f"({n_diff} elements differ, max {err})")
+    lp_k, v_k = fused(feats)
+    lp_p, v_p = fused.heads(trunk_int8_dx3_plain(fused.stem(feats), w, ws, b))
+    fused_lp = float((lp_k - lp_p).abs().max())
+    fused_v = float((v_k - v_p).abs().max())
+    phase("kernel_check", what="FusedInference kernel vs plain trunk", weights=weights,
+          max_abs_diff_log_probs=fused_lp, max_abs_diff_value=fused_v)
+    check(fused_lp == 0.0 and fused_v == 0.0, "FusedInference kernel == plain trunk")
+    return max_abs_err, (lp_k, v_k)
+
+
+def check_trunk_int8(model, feats, weights: str = "he_normal", batches=INT8_BATCHES) -> tuple:
     """The trunk_int8 kernel against its plain version, both stage_bf16
-    settings, at each of INT8_BATCHES, bit for bit; returns (largest
+    settings, at each of ``batches``, bit for bit; returns (largest
     difference, FusedInference(int8))."""
     fused8 = FusedInference(model, variant="int8")
     w, ws, b = fused8.trunk_w, fused8.trunk_scale, fused8.trunk_bias
     err = 0.0
     for stage in (False, True):
-        for batch in INT8_BATCHES:
+        for batch in batches:
             h = fused8.stem(batch_of(feats, batch))
             out_k = trunk_int8(h, w, ws, b, stage_bf16=stage)
             out_p = trunk_int8_plain(h, w, ws, b, stage_bf16=stage)
@@ -1011,9 +1164,9 @@ def check_trunk_int8(model, feats) -> tuple:
             n_diff = int((diff != 0).sum())
             err = max(err, float(diff.max()))
             check(bool(torch.isfinite(out_k.float()).all()), "finite trunk_int8 output")
-            phase("kernel_check", kernel="trunk_int8", stage_bf16=stage, batch=batch,
-                  block_games=block_size(batch, 16), differing=n_diff, of=out_k.numel(),
-                  max_abs_diff=float(diff.max()))
+            phase("kernel_check", kernel="trunk_int8", weights=weights, stage_bf16=stage,
+                  batch=batch, block_games=block_size(batch, 16), differing=n_diff,
+                  of=out_k.numel(), max_abs_diff=float(diff.max()))
             check(n_diff == 0, f"trunk_int8 (stage_bf16={stage}) == plain version at B={batch}")
     lp_k, v_k = fused8(feats)
     lp_p, v_p = fused8.heads(trunk_int8_plain(fused8.stem(feats), w, ws, b))
@@ -1958,12 +2111,11 @@ def frontends_phase(engine, dev) -> None:
     for kernel in kernels:
         kernel.launches = 0
     parity = session_parity(engine, dev)
-    model = OthelloResNet(NUM_BLOCKS, NUM_FILTERS)
-    model.load_state_dict(from_jax_variables(init_numpy_variables(NUM_BLOCKS, NUM_FILTERS, SEED)))
-    cfg = {"game": {"size": 8, "rules": "reference"},
-           "model": {"num_blocks": NUM_BLOCKS, "num_filters": NUM_FILTERS}}
-    model_path = ckpt_lib.save(str(FRONT_SCRATCH / "models" / "he_normal_10x128.pt"),
-                               {"model": model.state_dict(), "step": 0, "iteration": 0}, cfg)
+    # the trained flagship r5 network, its file and config sidecar as committed
+    src = trained.checkpoint("flagship_r5")
+    model_path = str(FRONT_SCRATCH / "models" / Path(src).name)
+    for suffix in ("", ".config.json"):
+        shutil.copyfile(src + suffix, model_path + suffix)
     web = web_game(engine, dev, model_path)
     gui = gui_check(dev, model_path)
     launched = {k.__name__: k.launches for k in kernels if k.launches}
@@ -1971,6 +2123,168 @@ def frontends_phase(engine, dev) -> None:
           kernel_launches=launched, total_s=round(time.perf_counter() - t0, 3))
     check(not launched, f"no kernel on the frontends' path ({launched})")
     shutil.rmtree(FRONT_SCRATCH, ignore_errors=True)
+
+
+def legal_top(log_probs: torch.Tensor, legal: torch.Tensor) -> torch.Tensor:
+    """Each position's most probable legal action."""
+    return torch.where(legal, log_probs, -torch.inf).argmax(-1)
+
+
+def check_trained_kernels(model, feats, weights: str) -> dict:
+    """The gates of the seeded weights on a trained network, at
+    TRAINED_BATCHES: int8_dx3, trunk_int8 (both stage_bf16 settings),
+    int8_m9, int8_patch, int8_flat and int8_dxcat (also its repeated
+    forwards) bit for bit against their plain versions and their
+    forwards equal to the plain trunk's; matmul9 and wide equal to their 20
+    convs, each conv within its bar, the forward within probs 0.03 / value
+    0.05 or, past that, twice the drift of two correct f32 orders of the
+    plain version (:func:`forward_bars`). Returns {kernel name: largest
+    difference}."""
+    at = TRAINED_BATCHES
+    errs = {"trunk_int8_dx3": check_int8_dx3(FusedInference(model, variant="int8_dx3"),
+                                             feats, weights, at)[0],
+            "trunk_int8": check_trunk_int8(model, feats, weights, at)[0],
+            "trunk_matmul9": check_matmul9(FusedInference(model, variant="matmul9"), feats,
+                                           weights, True, witness_bars=True, batches=at),
+            "trunk_wide": check_wide(FusedInference(model, variant="wide"), feats, weights,
+                                     True, witness_bars=True, batches=at)}
+    for variant, (err, _) in check_int8_variants(model, feats, weights, at).items():
+        errs[INT8_VARIANTS[variant][0].__name__] = err
+    return errs
+
+
+def variants_vs_bf16(player, feats, legal, name: str) -> dict:
+    """Each of the ten FusedInference variants on ``player``'s network
+    against its plain bf16 forward (what the player plays through) at
+    TRAINED_BATCHES: top legal move agreement >= TRAINED_AGREEMENT, value
+    correlation > TRAINED_VALUE_CORR; each kernel launched
+    launches_per_forward a forward and no other (int8_xla: none)."""
+    kernels = set(VARIANT_KERNEL.values())
+    rows = {}
+    for batch in TRAINED_BATCHES:
+        x, lg = feats[:batch], legal[:batch]
+        lp_ref, v_ref = player.net(x)
+        top_ref = legal_top(lp_ref, lg)
+        for variant in PORTED_VARIANTS:
+            fused = FusedInference(player.model, variant=variant)
+            for k in kernels:
+                k.launches = 0
+            lp, v = fused(x)
+            torch.cuda.synchronize()
+            launched = {k.__name__: k.launches for k in kernels if k.launches}
+            kernel = VARIANT_KERNEL.get(variant)
+            want = {kernel.__name__: launches_per_forward(kernel)} if kernel else {}
+            agree = float((legal_top(lp, lg) == top_ref).float().mean())
+            corr = float(torch.corrcoef(torch.stack([v[:, 0], v_ref[:, 0]]))[0, 1])
+            rows.setdefault(variant, {})[batch] = {
+                "agreement": agree, "value_corr": corr,
+                "max_abs_diff_probs": float((lp.exp() - lp_ref.exp()).abs().max()),
+                "max_abs_diff_value": float((v - v_ref).abs().max()), "launches": launched}
+            check(bool(torch.isfinite(lp).all() and torch.isfinite(v).all()),
+                  f"{name} {variant}: finite forward at B={batch}")
+            check(launched == want, f"{name} {variant}: launches {launched}, want {want}")
+            check(agree >= TRAINED_AGREEMENT and corr > TRAINED_VALUE_CORR,
+                  f"{name} {variant} vs the bf16 forward at B={batch}: agreement {agree} "
+                  f"(>= {TRAINED_AGREEMENT}), value correlation {corr} (> {TRAINED_VALUE_CORR})")
+    return rows
+
+
+def trained_match(engine, dev) -> dict:
+    """Flagship r5 (the plain bf16 forward, as ``benchmark_ai`` plays it)
+    against Greedy through ``Arena.play_matches`` at the protocol of its JAX
+    record in the manifest (50 games, 100 simulations, 4 random opening
+    plies, colours alternating): at least TRAINED_MATCH_WINS wins; no
+    kernel on this path."""
+    name, key = TRAINED_MATCH_RECORD
+    rec = next(r for r in trained.records(name, "Greedy") if r["key"] == key)
+    player = MCTSPlayer.from_checkpoint(trained.checkpoint(name),
+                                        num_simulations=rec["simulations"], device=dev)
+    kernels = set(VARIANT_KERNEL.values())
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = Arena(engine, device=dev).play_matches(player, GreedyPlayer(engine), rec["games"], SEED,
+                                               opening_random_plies=rec["opening_random_plies"])
+    seconds = time.perf_counter() - t0
+    launched = {k.__name__: k.launches for k in kernels if k.launches}
+    fields = {"match": f"{name} vs Greedy", "games": rec["games"],
+              "simulations": rec["simulations"],
+              "opening_random_plies": rec["opening_random_plies"], "wins": s.wins,
+              "losses": s.losses, "draws": s.draws, "avg_score": s.avg_score,
+              "avg_moves": s.avg_moves, "seconds": round(seconds, 3),
+              "jax_record": f"{rec['wins']}-{rec['losses']}-{rec['draws']} "
+                            f"({rec['file']}, {rec['key']})",
+              "bar_wins": TRAINED_MATCH_WINS}
+    phase("trained", **fields)
+    check(not launched, f"no kernel in the bf16 match ({launched})")
+    check(s.wins + s.losses + s.draws == rec["games"], "every game played")
+    check(s.wins >= TRAINED_MATCH_WINS, f"flagship r5 wins {s.wins} of {rec['games']} against "
+          f"Greedy (at least {TRAINED_MATCH_WINS})")
+    return fields
+
+
+def ablation_inspect(fresh, log: str) -> dict:
+    """The reloaded ablation trainer's replay and augmentation: prioritized
+    replay's priorities finite, positive and moved by the SGD steps;
+    augmentation on under the standard rules."""
+    fields = {"rules": fresh.engine.rules, "augment": fresh.augment,
+              "prioritized": fresh.prioritized}
+    if fresh.prioritized:
+        prio = fresh.buffer.priority[:fresh.buffer.filled].float().cpu()
+        fields.update(priorities=int(prio.numel()), priority_min=float(prio.min()),
+                      priority_max=float(prio.max()),
+                      priorities_distinct=int(prio.unique().numel()))
+        check(bool(torch.isfinite(prio).all() and (prio > 0).all()),
+              "prioritized replay: every priority finite and positive after the steps")
+        check(fields["priorities_distinct"] > 1, "prioritized replay: the steps moved priorities")
+    else:
+        check(fresh.augment and fresh.engine.rules == "standard"
+              and "augment_symmetries disabled" not in log,
+              "symmetry augmentation on under the standard rules")
+    return fields
+
+
+def trained_phase(engine, dev) -> dict:
+    """The repo's trained networks on the card (see the module docstring).
+    Returns {kernel name: largest difference to its plain version on their
+    weights}."""
+    t0 = time.perf_counter()
+    boards = random_positions(engine, GAMES, 20, np.random.default_rng(SEED), dev)
+    feats, legal = engine.features(boards), engine.legal_actions(boards)
+    errs = {}
+    for name in trained.NAMES:
+        entry = trained.manifest()["networks"][name]
+        player = MCTSPlayer.from_checkpoint(trained.checkpoint(name), device=dev)
+        check(next(player.model.parameters()).device.type == "cuda"
+              and player.train_state["iteration"] == entry["iteration"],
+              f"{name} loaded on the card at iteration {entry['iteration']}")
+        t1 = time.perf_counter()
+        for kname, err in check_trained_kernels(player.model, feats, f"trained_{name}").items():
+            errs[kname] = max(errs.get(kname, 0.0), err)
+        check_s = time.perf_counter() - t1
+        rows = variants_vs_bf16(player, feats, legal, name)
+        phase("trained", network=name, file=entry["file"], source=entry["source"],
+              iteration=entry["iteration"], kernel_check_s=round(check_s, 3),
+              variants_vs_bf16=rows)
+    match = trained_match(engine, dev)
+    ablations = {}
+    for cfg_name in ABLATIONS:
+        stem = Path(cfg_name).stem
+        root = TRAINED_SCRATCH / stem
+        cut = config_with(cfg_name, {**ABLATION_CUT, "paths": {
+            "checkpoint_dir": str(root / "models"), "log_dir": str(root / "logs"),
+            "data_dir": str(root)}})
+        t1 = time.perf_counter()
+        fields = cli_train_at(cut, stem, trunk_int8_dx3, dev, config=f"configs/{cfg_name}",
+                              inspect=ablation_inspect)
+        fields["seconds"] = round(time.perf_counter() - t1, 3)
+        phase("trained", path="cli train, ablation", **fields)
+        ablations[stem] = fields["seconds"]
+    shutil.rmtree(TRAINED_SCRATCH, ignore_errors=True)
+    phase("trained", max_abs_err=errs, match_s=match["seconds"], ablation_s=ablations,
+          seconds=round(time.perf_counter() - t0, 3))
+    return errs
 
 
 def shape_model(size: int, channels: int, blocks: int, init, dev) -> OthelloResNet:
@@ -2072,14 +2386,16 @@ def metrics_rows(log_dir: Path) -> dict:
         return {r["tag"]: r["value"] for r in map(json.loads, f)}
 
 
-def cli_train_at(cut: dict, name: str, kernel, dev) -> dict:
-    """``cli train --config`` on ``cut`` (written under SHAPES_SCRATCH as
-    ``name``.yaml and read back), counting the network's forwards and timing
-    the gate match; then the final checkpoint reloaded into a fresh trainer,
-    its network through ``kernel`` on the card equal to the plain trunk.
-    Checks: ``kernel`` launched launches_per_forward x forwards, no other
-    trunk, no self-heal line, the checkpoints written. Returns the phase's
-    fields."""
+def cli_train_at(cut: dict, name: str, kernel, dev, config: str = "configs/debug_6x6.yaml",
+                 inspect=None) -> dict:
+    """``cli train --config`` on ``cut`` (``config`` cut, written under its
+    ``paths.data_dir`` as ``name``.yaml and read back), counting the
+    network's forwards and timing the gate match; then the final checkpoint
+    reloaded into a fresh trainer, its network through ``kernel`` on the
+    card equal to the plain trunk, and ``inspect(trainer, log)`` (its checks
+    and fields) on that trainer. Checks: ``kernel`` launched
+    launches_per_forward x forwards, no other trunk, no self-heal line, the
+    checkpoints written. Returns the phase's fields."""
     cut = json.loads(json.dumps(cut))
     root = Path(cut["paths"]["data_dir"])
     shutil.rmtree(root, ignore_errors=True)
@@ -2149,8 +2465,9 @@ def cli_train_at(cut: dict, name: str, kernel, dev) -> dict:
     check(torch.equal(lp, lp_p) and torch.equal(v, v_p),
           f"{name}: the reloaded network through {kernel.__name__} == plain trunk")
     reload_s = time.perf_counter() - t1
+    inspected = inspect(fresh, log) if inspect else {}
     fresh.close()
-    fields = {"config": "configs/debug_6x6.yaml", "size": S,
+    fields = {"config": config, "size": S, **inspected,
               "model": f"{cut['model']['num_blocks']}x{cut['model']['num_filters']}",
               "variant": fresh.variant, "games": cut["training"]["self_play_episodes_per_iter"],
               "simulations": cut["mcts"]["num_simulations"],
@@ -2465,29 +2782,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     feats = engine.features(random_positions(engine, GAMES, 40, rng, dev))
     w, ws, b = fused.trunk_w, fused.trunk_scale, fused.trunk_bias
-    max_abs_err = 0.0
-    for batch in INT8_BATCHES:
-        h = fused.stem(batch_of(feats, batch))
-        out_k = trunk_int8_dx3(h, w, ws, b)
-        out_p = trunk_int8_dx3_plain(h, w, ws, b)
-        torch.cuda.synchronize()
-        diff = (out_k.float() - out_p.float()).abs()
-        n_diff, err = int((diff != 0).sum()), float(diff.max())
-        max_abs_err = max(max_abs_err, err)
-        check(bool(torch.isfinite(out_k.float()).all()), "finite trunk output")
-        bad_games = torch.nonzero(diff.reshape(batch, -1).amax(dim=1) > 0).flatten()
-        phase("kernel_check", batch=batch, block_games=block_size(batch),
-              differing=n_diff, of=out_k.numel(), max_abs_diff=err,
-              games_differing=len(bad_games), first_games=bad_games[:8].tolist())
-        check(n_diff == 0, f"trunk kernel == plain version at B={batch} "
-              f"({n_diff} elements differ, max {err})")
-    lp_k, v_k = fused(feats)
-    lp_p, v_p = fused.heads(trunk_int8_dx3_plain(fused.stem(feats), w, ws, b))
-    fused_lp = float((lp_k - lp_p).abs().max())
-    fused_v = float((v_k - v_p).abs().max())
-    phase("kernel_check", what="FusedInference kernel vs plain trunk",
-          max_abs_diff_log_probs=fused_lp, max_abs_diff_value=fused_v)
-    check(fused_lp == 0.0 and fused_v == 0.0, "FusedInference kernel == plain trunk")
+    max_abs_err, (lp_k, v_k) = check_int8_dx3(fused, feats)
     check(lp_k.shape == (GAMES, 65) and v_k.shape == (GAMES, 1), "output shapes")
     check(bool(torch.allclose(lp_k.exp().sum(-1), torch.ones(GAMES, device=dev), atol=1e-4)),
           "policy sums to 1")
@@ -2578,6 +2873,7 @@ def main() -> int:
     cli_phase(engine, dev)
     distributed_phase(engine, dev)
     frontends_phase(engine, dev)
+    trained_errs = trained_phase(engine, dev)
     step_launches, int8_launches = bench_phase()
     variant_launches = benchmark_model_phase()
     shapes_checked, wide_rows = shapes_phase(dev)
@@ -2748,6 +3044,8 @@ def main() -> int:
     # (random_step: the board sides), and each trunk's time past 128
     # channels (8x8 x 256, B=1024) beside that shape's bound
     for k in kernels:
+        if k["name"] in trained_errs:
+            k["max_abs_err_trained"] = trained_errs[k["name"]]
         k["shapes"] = ([[8, NUM_FILTERS]] + shapes_checked.get(k["name"], [])
                        if k["name"] != "random_step" else [[8], [6], [4]])
     for variant, row in wide_rows.items():

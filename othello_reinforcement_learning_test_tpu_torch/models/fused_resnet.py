@@ -48,8 +48,13 @@ DEFAULT_BLOCK_GAMES = {"matmul9": 32, "wide": 16, "int8": 16, "int8_bf16": 16,
 
 def _bn_affine(bn: torch.nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eval BatchNorm as ``v * g + b`` with g = gamma / sqrt(var + eps),
-    b = beta - mean * g (f32)."""
-    g = bn.weight / torch.sqrt(bn.running_var + BN_EPS)
+    b = beta - mean * g (f32). The square root is the correctly rounded f32
+    one, taken in float64 and rounded once, as XLA's and CUDA's are:
+    PyTorch's vectorized f32 ``sqrt`` on the CPU is an ulp off near ties,
+    which moves a folded bf16 weight and, through the int8 codes, the
+    quantized trunk (one channel of a trained 10x128 network)."""
+    root = torch.sqrt((bn.running_var + BN_EPS).to(torch.float64)).to(torch.float32)
+    g = bn.weight / root
     return g, bn.bias - bn.running_mean * g
 
 

@@ -14,7 +14,7 @@
   ``wide`` trunk's padded run differs by a bf16 ulp in 2e-4 of its values,
   which is the GEMM's order, not the padding; the card's kernels take the
   padded width in any case.)
-- an independent numpy reference of the int8 trunk function (int64 sums,
+- an independent numpy reference of the int8 trunk function (exact integer sums in float64,
   every f32 operation rounded on its own, the activation scale a true
   division by 127): the port's plain int8 variants, through
   ``FusedInference``, equal it value for value at 8x8 x 256, at 6x6 x 40
@@ -175,13 +175,16 @@ def numpy_int8_trunk(x, w_int8, w_scale, bias, bg, stage_bf16=False, reciprocal=
     as ``quantize_trunk`` makes it; one activation scale per block of bg
     games, ``max(amax, 1e-8) / 127`` (``reciprocal``: times the f32
     reciprocal of 127), codes ``clip(rint(h / s), -127, 127)``, the nine
-    shifted products summed in int64 (``stage_bf16``: each tap's sum rounded
+    shifted products summed exactly (``stage_bf16``: each tap's sum rounded
     to bf16 through f32 and the taps summed in f32 in OFFSETS order), then
     ``f32(acc) * (s * w_scale) + bias`` with every f32 operation rounded on
     its own; ReLU, the residual add, bf16 out."""
     B, S, _, C = x.shape
     L = w_int8.shape[0]
-    taps = w_int8.reshape(L, C, 9, C).transpose(0, 2, 1, 3).astype(np.int64)
+    # integer products summed in float64: every partial sum of 9C products
+    # of two int8 codes is an integer below 2^53, so exact (as int64 is,
+    # and BLAS-fast)
+    taps = w_int8.reshape(L, C, 9, C).transpose(0, 2, 1, 3).astype(np.float64)
     f32 = np.float32
 
     def conv(h, layer):
@@ -189,7 +192,7 @@ def numpy_int8_trunk(x, w_int8, w_scale, bias, bg, stage_bf16=False, reciprocal=
         m = np.maximum(amax, f32(1e-8))
         s = m * f32(1 / 127) if reciprocal else m / f32(127)
         s = np.repeat(s, bg)[:, None, None, None]
-        q = np.clip(np.rint(h / s), -127, 127).astype(np.int64)
+        q = np.clip(np.rint(h / s), -127, 127).astype(np.float64)
         qp = np.pad(q, ((0, 0), (1, 1), (1, 1), (0, 0)))
         acc = None
         for k, (dy, dx) in enumerate(OFFSETS):
