@@ -227,6 +227,21 @@ each as they finish:
                  checkpoint: launches 20 x forwards, the reloaded
                  prioritized buffer's priorities finite, positive and moved,
                  augmentation on under the standard rules;
+   learn         a resume on the card bit for bit equal to the
+                 uninterrupted run: ``configs/default_8x8.yaml`` read with
+                 the port's reader and cut to 2 iterations of 16 games at
+                 4 simulations, its 10 SGD steps at batch 256, a ring of
+                 1200 positions (it wraps in iteration 2) and a checkpoint
+                 every iteration. Run A trains iterations 1-2; run B, a
+                 fresh ``AlphaZeroTrainer``, loads A's checkpoint of
+                 iteration 1 and trains to 2. Twice: through the plain bf16
+                 forward (the learning run's path; no trunk may launch)
+                 and through ``int8_dx3`` (20 launches a forward, no other
+                 trunk). A and B equal in every parameter, BatchNorm
+                 statistic and momentum buffer, the step, both
+                 generators, the ring's slots and counters
+                 (``tests/torch_resume.py::resume_leaves``) and iteration
+                 2's metrics rows but the wall times; each run's seconds;
 9. bench         the port's ``bench.py --mode all --repeats 1`` in process,
                  its JSON line printed (random self-play through
                  ``random_step``, one launch a ply; self-play through
@@ -593,6 +608,17 @@ ABLATION_CUT = {"training": {"self_play_episodes_per_iter": 64, "num_iterations"
                 "mcts": {"num_simulations": 8},
                 "self_play": {"num_parallel_games": 64},
                 "system": {"self_play_net_variant": "int8_dx3", "max_recovery_retries": 0}}
+# phase learn: configs/default_8x8.yaml (10x128, self-play through the plain
+# bf16 forward) cut to 2 iterations of 16 games at 4 simulations with its 10
+# SGD steps at batch 256, a ring of 1200 positions (about 960 plies an
+# iteration, so it wraps in iteration 2) and a checkpoint every iteration;
+# run through the plain forward and through int8_dx3: (variant, its kernel)
+LEARN_SCRATCH = build.BUILD_DIR / "chip_smoke_learn"  # git-ignored
+LEARN_CUT = {"training": {"self_play_episodes_per_iter": 16, "num_iterations": 2,
+                          "replay_buffer_size": 1200, "checkpoint_interval": 1},
+             "mcts": {"num_simulations": 4},
+             "system": {"max_recovery_retries": 0}}
+LEARN_PATHS = (("xla", None), ("int8_dx3", trunk_int8_dx3))
 
 
 def launches_per_forward(kernel, layers: int = 2 * NUM_BLOCKS) -> int:
@@ -2287,6 +2313,78 @@ def trained_phase(engine, dev) -> dict:
     return errs
 
 
+def learn_phase() -> None:
+    """A resume on the card bit for bit equal to the uninterrupted run (see
+    the module docstring), through the plain forward and through
+    ``int8_dx3``."""
+    sys.path.insert(0, str(REPO / "tests"))
+    try:
+        import torch_resume
+    finally:
+        sys.path.remove(str(REPO / "tests"))
+    t0 = time.perf_counter()
+    for variant, kernel in LEARN_PATHS:
+        root = LEARN_SCRATCH / variant
+        shutil.rmtree(root, ignore_errors=True)
+
+        def cut(run):
+            return config_with("default_8x8.yaml", {**LEARN_CUT, "paths": {
+                "checkpoint_dir": str(root / run / "models"), "log_dir": str(root / run / "logs"),
+                "data_dir": str(root / run)},
+                "system": {**LEARN_CUT["system"], "self_play_net_variant": variant}})
+
+        forwards, runs, seconds = [0], {}, {}
+        for k in set(VARIANT_KERNEL.values()):
+            k.launches = 0
+        with counted_forwards(forwards):
+            for run in ("A", "B"):
+                tr = trainer_lib.AlphaZeroTrainer(cut(run), log_cb=None)
+                if run == "B":
+                    tr.load_checkpoint(str(root / "A" / "models" / "checkpoint_iter_000001.pt"))
+                    resumed_from = (tr.state.iteration, tr.buffer.total_added)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                tr.train()
+                torch.cuda.synchronize()
+                seconds[run] = round(time.perf_counter() - t1, 3)
+                tr.close()
+                runs[run] = tr
+        launched = {k.__name__: k.launches for k in VARIANT_KERNEL.values() if k.launches}
+        a, b = runs["A"], runs["B"]
+        check(a.device.type == "cuda" and a.variant == variant, f"learn {variant}: on the card")
+        if kernel is None:
+            check(not launched, f"learn {variant}: no trunk kernel ({launched})")
+        else:
+            per = launches_per_forward(kernel, 2 * a.model.num_blocks)
+            check(kernel.launches > 0 and kernel.launches == per * forwards[0]
+                  and set(launched) == {kernel.__name__},
+                  f"learn {variant}: {kernel.__name__} launches {kernel.launches} == {per} x "
+                  f"forwards {forwards[0]}, no other trunk ({launched})")
+        C = a.buffer.capacity
+        check(resumed_from[0] == 1 and resumed_from[1] < C < a.buffer.total_added
+              and a.buffer.filled == C,
+              f"learn {variant}: B resumed at iteration 1 and the ring wrapped after it "
+              f"(plies {resumed_from[1]} then {a.buffer.total_added}, capacity {C})")
+        check(a.state.step == 2 * a.epochs_per_iter, f"learn {variant}: 2 x 10 SGD steps")
+        differ = torch_resume.differing_leaves(a, b)
+        rows = {run: torch_resume.metric_log(tr.log_dir) for run, tr in runs.items()}
+        compared = {run: torch_resume.compared_rows(tr.log_dir, 2) for run, tr in runs.items()}
+        sgd = {run: [round(v, 3) for _, t, v in rs if t == "Time/train"]
+               for run, rs in rows.items()}
+        fields = {"variant": variant, "forwards": forwards[0], "trunk_launches": launched,
+                  "leaves": len(torch_resume.resume_leaves(a)), "leaves_differ": differ[:10],
+                  "metrics_rows": len(compared["A"]), "plies": a.buffer.total_added,
+                  "capacity": C, "loss": [v for _, t, v in rows["A"] if t == "Loss/train"],
+                  "sgd_s": sgd, "run_s": seconds}
+        phase("learn", **fields)
+        check(not differ, f"learn {variant}: resume from iteration 1 == uninterrupted run "
+              f"({len(differ)} of {fields['leaves']} leaves differ: {differ[:10]})")
+        check(compared["A"] == compared["B"] and compared["A"],
+              f"learn {variant}: the metrics rows of iteration 2 equal")
+    shutil.rmtree(LEARN_SCRATCH, ignore_errors=True)
+    phase("learn", seconds=round(time.perf_counter() - t0, 3))
+
+
 def shape_model(size: int, channels: int, blocks: int, init, dev) -> OthelloResNet:
     """A blocks x channels network for size x size boards, weights from a
     numpy seed through ``init``, eval mode on ``dev``."""
@@ -2386,6 +2484,27 @@ def metrics_rows(log_dir: Path) -> dict:
         return {r["tag"]: r["value"] for r in map(json.loads, f)}
 
 
+@contextlib.contextmanager
+def counted_forwards(forwards: list):
+    """Every network ``AlphaZeroTrainer`` makes (self-play and gate match)
+    counting its forwards into ``forwards[0]``."""
+    make_net = trainer_lib.AlphaZeroTrainer._net
+
+    def counted_net(self, model):
+        net = make_net(self, model)
+
+        def f(x):
+            forwards[0] += 1
+            return net(x)
+        return f
+
+    trainer_lib.AlphaZeroTrainer._net = counted_net
+    try:
+        yield
+    finally:
+        trainer_lib.AlphaZeroTrainer._net = make_net
+
+
 def cli_train_at(cut: dict, name: str, kernel, dev, config: str = "configs/debug_6x6.yaml",
                  inspect=None) -> dict:
     """``cli train --config`` on ``cut`` (``config`` cut, written under its
@@ -2404,16 +2523,7 @@ def cli_train_at(cut: dict, name: str, kernel, dev, config: str = "configs/debug
     path.write_text(to_yaml(cut))
     check(load_config(str(path)) == cut, f"{name}: the cut copy reads back equal")
     forwards, gate = [0], []
-    trainer = trainer_lib.AlphaZeroTrainer
-    make_net, gate_match = trainer._net, trainer._gate_match
-
-    def counted_net(self, model):
-        net = make_net(self, model)
-
-        def f(x):
-            forwards[0] += 1
-            return net(x)
-        return f
+    gate_match = trainer_lib.AlphaZeroTrainer._gate_match
 
     def timed_gate_match(self, seed):
         t, before = time.perf_counter(), forwards[0]
@@ -2426,12 +2536,11 @@ def cli_train_at(cut: dict, name: str, kernel, dev, config: str = "configs/debug
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trainer_lib.AlphaZeroTrainer._net = counted_net
     trainer_lib.AlphaZeroTrainer._gate_match = timed_gate_match
     try:
-        _, log = captured(cli.main, ["train", "--config", str(path)])
+        with counted_forwards(forwards):
+            _, log = captured(cli.main, ["train", "--config", str(path)])
     finally:
-        trainer_lib.AlphaZeroTrainer._net = make_net
         trainer_lib.AlphaZeroTrainer._gate_match = gate_match
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -2874,6 +2983,7 @@ def main() -> int:
     distributed_phase(engine, dev)
     frontends_phase(engine, dev)
     trained_errs = trained_phase(engine, dev)
+    learn_phase()
     step_launches, int8_launches = bench_phase()
     variant_launches = benchmark_model_phase()
     shapes_checked, wide_rows = shapes_phase(dev)

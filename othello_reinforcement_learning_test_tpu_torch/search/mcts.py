@@ -147,13 +147,16 @@ def add_dirichlet_noise(generator: torch.Generator, prior: torch.Tensor,
 def _puct_best(tree: Tree, c_puct: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Best PUCT action and its child slot for every node at once: (B, N)
     each (NO_CHILD where unexpanded). The tree does not change during one
-    selection walk, so this is computed once per simulation."""
+    selection walk, so this is computed once per simulation.
+
+    The exploration root is the correctly rounded f32 one, taken in float64
+    and rounded once, as XLA's and CUDA's are: PyTorch's vectorized f32
+    ``sqrt`` on the CPU is an ulp off near ties (first at 267 visits)."""
     c_visit = tree.child_visit
     q = torch.where(c_visit > 0,
                     -tree.child_value_sum / c_visit.clamp_min(1), 0.0)
-    visit = tree.visit.to(torch.float32)
-    u = (c_puct * tree.prior
-         * torch.sqrt(visit.clamp_min(1.0))[:, :, None]
+    root = torch.sqrt(tree.visit.clamp_min(1).to(torch.float64)).to(torch.float32)
+    u = (c_puct * tree.prior * root[:, :, None]
          / (1.0 + c_visit.to(torch.float32)))
     scores = torch.where(tree.legal, q + u, -torch.inf)
     act_star = torch.argmax(scores, dim=-1)  # (B, N)

@@ -744,8 +744,10 @@ class AlphaZeroTrainer:
 
         if (it + 1) % self.checkpoint_interval == 0:
             t2 = time.time()
-            self.save_checkpoint(f"checkpoint_iter_{it + 1:06d}")
+            name = f"checkpoint_iter_{it + 1:06d}"
+            self.save_checkpoint(name)
             self.last_checkpoint_seconds = time.time() - t2
+            self.log(f"checkpoint {name} written in {self.last_checkpoint_seconds:.2f}s")
         return scalars
 
     def close(self) -> None:

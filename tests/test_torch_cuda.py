@@ -37,7 +37,8 @@ weights (8x8 with 256, and 4x4 with 144, 8x8 with 208, 6x6 with 176 for the
 three bodies' trunks) and at a width that is no multiple of 16 (6x6 with 40, run at 48
 with zero channels); the forward at 8x8 x 256 and 6x6 x 40 as at 6x6 x 64;
 a shape outside the set the kernels take (past 256 channels, other board
-sides) is refused before a launch.
+sides) is refused before a launch. A resume of the trainer on the card,
+across a wrap of its ring, equals the uninterrupted run bit for bit.
 """
 
 import numpy as np
@@ -589,3 +590,17 @@ def test_trunks_refuse_other_shapes_before_a_launch(variant, size, channels):
         kernel(x, *args)
     assert kernel.launches == before
 
+
+
+@pytest.mark.cuda
+def test_resume_across_a_ring_wrap_on_the_card(tmp_path):
+    """``test_torch_learning.py::test_resume_across_a_ring_wrap`` on the
+    card at the trainer's bf16 compute: a resume after iteration 1, across
+    a wrap of the ring, equal bit for bit to the uninterrupted run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the run trains on it")
+    from torch_resume import assert_resume_equal, run_and_resume
+
+    a, b, resumed_plies = run_and_resume(tmp_path, "auto")
+    assert a.device.type == "cuda"
+    assert_resume_equal(a, b, resumed_plies)
