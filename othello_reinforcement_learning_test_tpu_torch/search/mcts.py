@@ -270,6 +270,33 @@ def _expand_and_backup(tree: Tree, sel: _Selection, child_me: torch.Tensor,
     tree.child_value_sum.view(B, n_slots * A).scatter_add_(1, flat, child_signed)
 
 
+def _step_leaf(engine: OthelloEngine, tree: Tree, sel: _Selection, zeros: torch.Tensor):
+    """Play the selected edge from its parent: ``(child board, legal,
+    terminal, winner, features)``. ``zeros``: (B,) move counts of 0."""
+    parent = Board(me=_rows(tree.board_me, sel.parent),
+                   opp=_rows(tree.board_opp, sel.parent),
+                   move_count=zeros, passed=zeros.to(torch.bool))
+    # the parent's pass legality is cached in the tree, so step skips its
+    # legal-move flood
+    pass_legal = _rows(tree.legal, sel.parent)[:, engine.pass_action]
+    child, _ = engine.step(parent, sel.action, pass_legal=pass_legal)
+    return (child, *engine.observe(child, with_features=True))
+
+
+def _simulate(engine: OthelloEngine, net: Net, tree: Tree, zeros: torch.Tensor,
+              c_puct: float, cond_interval: int = 1) -> None:
+    """One simulation, in place: select a leaf, step to it, evaluate it with
+    one network call for every game, expand and back up. Its parts are
+    :func:`_select`, :func:`_step_leaf`, ``net``, :func:`masked_probs` and
+    :func:`_expand_and_backup`, which ``profilers/profile_mcts_parts.py``
+    times one by one."""
+    sel = _select(tree, c_puct, cond_interval)
+    child, c_legal, c_term, c_win, feats = _step_leaf(engine, tree, sel, zeros)
+    log_p, v = net(feats)
+    _expand_and_backup(tree, sel, child.me, child.opp, masked_probs(log_p, c_legal),
+                       c_legal, c_term, c_win, v[:, 0])
+
+
 def _init_tree(n_slots: int, me: torch.Tensor, opp: torch.Tensor,
                prior: torch.Tensor, legal: torch.Tensor, terminal: torch.Tensor,
                winner: torch.Tensor, value: torch.Tensor) -> Tree:
@@ -344,19 +371,7 @@ def search(engine: OthelloEngine, net: Net, boards: Board, num_simulations: int,
                       win0, root_value0)
     zeros = torch.zeros_like(boards.move_count)
     for _ in range(num_simulations):
-        sel = _select(tree, c_puct, cond_interval)
-        parent = Board(me=_rows(tree.board_me, sel.parent),
-                       opp=_rows(tree.board_opp, sel.parent),
-                       move_count=zeros, passed=zeros.to(torch.bool))
-        # the parent's pass legality is cached in the tree, so step skips
-        # its legal-move flood
-        pass_legal = _rows(tree.legal, sel.parent)[:, engine.pass_action]
-        child, _ = engine.step(parent, sel.action, pass_legal=pass_legal)
-        c_legal, c_term, c_win, feats = engine.observe(child, with_features=True)
-        log_p, v = net(feats)
-        _expand_and_backup(tree, sel, child.me, child.opp,
-                           masked_probs(log_p, c_legal), c_legal, c_term, c_win,
-                           v[:, 0])
+        _simulate(engine, net, tree, zeros, c_puct, cond_interval)
 
     root_cv = tree.child_visit[:, 0]
     q_values = torch.where(root_cv > 0,
