@@ -315,6 +315,24 @@ each as they finish:
                  profiled wall ms; trunk launches 20 (``int8_dxcat``: 1) x
                  each row's forwards; the five parts' device operations
                  summing exactly to one whole simulation's;
+    studies      the strength studies (``..._torch/studies/``) on the card,
+                 writing only under the git-ignored
+                 ``_build/chip_smoke_studies``: the Elo ladder's
+                 ``fit_and_report`` over the shipped copy of
+                 ``results/elo_ladder.json`` (``trained/records/``) equal
+                 to its recorded ratings; the ladder's pair loop on
+                 ``random|greedy`` and ``minimax-d2|greedy`` (no network,
+                 so the record's protocol exactly) at their records' 120
+                 games, each row with the JAX schema and its score within
+                 |z| <= 3.29 of the record (pooled two-proportion z, a draw
+                 half); the standard-rules arena's pair loop on
+                 ``minimax-d2|greedy`` at 60 games (the symmetry pair's
+                 networks are not shipped): the standard rules, every game
+                 played, the JAX record's schema; ``eval_flagship --preset
+                 r5_ext --ckpt`` the shipped flagship r5 at 8 simulations,
+                 20 games: one line a matchup with the JAX script's keys;
+                 no trunk launched throughout (the studies play the plain
+                 bf16 forward); each step's seconds;
 10. profile      one ply's search at B=1024 through the profilers'
                  harness: wall time, device-busy time and idle share,
                  launches a simulation, time by kernel; checks a complete
@@ -440,6 +458,12 @@ from othello_reinforcement_learning_test_tpu_torch.profilers import (
 )
 from othello_reinforcement_learning_test_tpu_torch.profilers.common import Harness
 from othello_reinforcement_learning_test_tpu_torch.search import mcts
+from othello_reinforcement_learning_test_tpu_torch.studies import (
+    common as studies_common,
+    elo_ladder,
+    eval_flagship,
+    standard_rules_arena,
+)
 from othello_reinforcement_learning_test_tpu_torch.train import trainer as trainer_lib
 from othello_reinforcement_learning_test_tpu_torch.train.self_play import play_games
 from othello_reinforcement_learning_test_tpu_torch.utils.config import load_config, to_yaml
@@ -672,6 +696,16 @@ FORWARD_ROWS = (["stem (conv 3->C + BN)", "quantize_trunk (hoisted)"]
                    "full plain bf16"])
 FORWARD_ARGS = ["--reps", "10", "--repeats", "2", "--full-variants", "int8_dx3", "int8_dxcat"]
 PROFILE_REPEATS = 2  # phase profile's and the web game's timed searches
+# phase studies: the ladder's pairs with no network, at their records' games
+# (the records' protocol exactly); the standard arena on a pair of the
+# shipped players (the symmetry pair's networks are not shipped); the r5_ext
+# preset's network pairs cut to few simulations and games
+STUDIES_SCRATCH = build.BUILD_DIR / "chip_smoke_studies"  # git-ignored
+STUDIES_HOST_PAIRS = (("random", "greedy"), ("minimax-d2", "greedy"))
+STUDIES_ARENA_PAIR, STUDIES_ARENA_GAMES = ("minimax-d2", "greedy"), 60
+STUDIES_FLAGSHIP_SIMS, STUDIES_FLAGSHIP_GAMES = 8, 20
+STUDIES_ROW_KEYS = ["wins_a", "wins_b", "draws", "n", "wall_s"]
+R5_EXT_KEYS = ["opponent", "wins", "losses", "draws", "decisive_winrate", "games"]
 PROFILER_RUNS = (
     (profile_mcts, ["--batch", str(GAMES), "--sims", str(SIMS), "--chain", "1", "--repeats",
                     "2", "--net-variant", "int8_dx3"],
@@ -2954,6 +2988,99 @@ def profilers_phase() -> dict:
     return outs
 
 
+@contextlib.contextmanager
+def arena_rules(seen: list):
+    """Note the engine rules of every ``Arena.play_matches`` in the block."""
+    real = Arena.play_matches
+
+    def play_matches(self, *args, **kwargs):
+        seen.append(self.engine.rules)
+        return real(self, *args, **kwargs)
+
+    Arena.play_matches = play_matches
+    try:
+        yield seen
+    finally:
+        Arena.play_matches = real
+
+
+def studies_phase(dev) -> None:
+    """The strength studies (``..._torch/studies/``) on the card (see the
+    module docstring), each step with its seconds; no trunk may launch."""
+    t0 = time.perf_counter()
+    kernels = set(VARIANT_KERNEL.values())
+    for k in kernels:
+        k.launches = 0
+    shutil.rmtree(STUDIES_SCRATCH, ignore_errors=True)
+    STUDIES_SCRATCH.mkdir(parents=True)
+    record = trained.study_record("elo_ladder")
+    seconds = {}
+
+    t1 = time.perf_counter()
+    fit = STUDIES_SCRATCH / "elo_ladder.json"
+    studies_common.write_results(str(fit), {"protocol": record["protocol"],
+                                            "pairs": record["pairs"]})
+    captured(lambda _: elo_ladder.fit_and_report(str(fit), str(fit.with_suffix(".md"))), [])
+    ratings = json.loads(fit.read_text())["ratings"]
+    seconds["fit"] = round(time.perf_counter() - t1, 3)
+    phase("studies", step="elo_ladder fit_and_report of the shipped record copy",
+          players=len(ratings), pairs=len(record["pairs"]), seconds=seconds["fit"])
+    check(ratings == record["ratings"], "the ladder's fit equals the record's ratings")
+
+    for a, b in STUDIES_HOST_PAIRS:
+        key = f"{a}|{b}"
+        rec = record["pairs"][key]
+        t1 = time.perf_counter()
+        _, text = captured(lambda _: elo_ladder.play_phase(
+            [(a, b)], rec["n"], str(STUDIES_SCRATCH / "ladder_pairs.json"), device=dev), [])
+        row = json.loads((STUDIES_SCRATCH / "ladder_pairs.json").read_text())["pairs"][key]
+        seconds[key] = round(time.perf_counter() - t1, 3)
+        z = studies_common.score_z(row, rec)
+        band = studies_common.score_band(rec, row["n"])
+        phase("studies", step=f"elo_ladder pair {key}", row=row, record=rec,
+              band=[round(x, 4) for x in band], z=round(z, 3), printed=text.strip(),
+              seconds=seconds[key])
+        check(list(row) == STUDIES_ROW_KEYS and row["wins_a"] + row["wins_b"] + row["draws"]
+              == rec["n"], f"{key}: the JAX row schema, every game played")
+        check(abs(z) <= studies_common.Z_BAND, f"{key}: score in its record's band {band}")
+
+    a, b = STUDIES_ARENA_PAIR
+    key = f"{a}|{b}"
+    t1 = time.perf_counter()
+    out = STUDIES_SCRATCH / "symmetry_ablation.json"
+    with arena_rules([]) as rules:
+        captured(lambda _: standard_rules_arena.play([(a, b)], STUDIES_ARENA_GAMES, str(out),
+                                                     device=dev), [])
+    written = json.loads(out.read_text())
+    row = written["pairs"][key]
+    step = f"standard_rules_arena pair {key}"
+    seconds[step] = round(time.perf_counter() - t1, 3)
+    phase("studies", step=step, row=row, rules=rules, seconds=seconds[step])
+    check(rules == ["standard"], f"{key}: played under the standard rules ({rules})")
+    check(list(written) == ["pairs"] and list(row) == STUDIES_ROW_KEYS
+          and row["wins_a"] + row["wins_b"] + row["draws"] == STUDIES_ARENA_GAMES,
+          f"{key}: the JAX record's schema, every game played")
+
+    t1 = time.perf_counter()
+    argv = ["--preset", "r5_ext", "--ckpt", trained.checkpoint("flagship_r5"),
+            "--sims", str(STUDIES_FLAGSHIP_SIMS), "--games", str(STUDIES_FLAGSHIP_GAMES)]
+    _, text = captured(eval_flagship.main, argv)
+    lines = [json.loads(x) for x in text.splitlines()]
+    seconds["eval_flagship r5_ext"] = round(time.perf_counter() - t1, 3)
+    phase("studies", step="eval_flagship " + " ".join(argv), lines=lines,
+          seconds=seconds["eval_flagship r5_ext"])
+    check([x["opponent"] for x in lines] == list(eval_flagship.PRESETS["r5_ext"]["opponents"])
+          and all(list(x) == R5_EXT_KEYS and x["games"] == STUDIES_FLAGSHIP_GAMES
+                  == x["wins"] + x["losses"] + x["draws"] for x in lines),
+          "eval_flagship r5_ext: one line a matchup with the JAX keys, every game played")
+
+    launched = {k.__name__: k.launches for k in kernels if k.launches}
+    total = round(time.perf_counter() - t0, 3)
+    phase("studies", seconds=total, steps=seconds, kernel_launches=launched)
+    check(not launched, f"no trunk kernel on the studies' paths ({launched})")
+    shutil.rmtree(STUDIES_SCRATCH, ignore_errors=True)
+
+
 def cudnn_tower(h: torch.Tensor, w: list, b: torch.Tensor) -> torch.Tensor:
     """The folded matmul9 tower as 20 bf16 cuDNN convolutions with ReLU and
     the residual add: the library yardstick. h: (B, S, S, C), whose NCHW
@@ -3107,6 +3234,7 @@ def main() -> int:
     variant_launches = benchmark_model_phase()
     shapes_checked, wide_rows = shapes_phase(dev)
     profilers_phase()
+    studies_phase(dev)
 
     # timing at the main paths' shape (B=1024)
     h = fused.stem(feats)

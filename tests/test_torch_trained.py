@@ -1,13 +1,17 @@
 """The repo's trained networks in the port (``..._torch/trained/``), on the CPU.
 
-Two trained 10x128 JAX checkpoints of ``results/``, the flagship r5 network
-and the 500-iteration one, carried into the port with
-``scripts/orbax_to_torch.py`` and committed with ``MANIFEST.json``:
+Three trained 10x128 JAX checkpoints of ``results/`` carried into the
+port with ``scripts/orbax_to_torch.py`` and committed with
+``MANIFEST.json``: ``trained.NAMES`` (the flagship r5 network and the
+500-iteration one) and ``trained.STUDY_NAMES`` (flagship r4, which the
+strength studies play). Items 1 and 2 hold all three, items 3 and 4 the
+two of ``NAMES``:
 
 1. each committed ``.pt`` equals a fresh conversion of its orbax directory
    tensor for tensor; its sha256, step and iteration are the manifest's, its
    config sidecar the JAX one; every record the manifest quotes equals the
-   file and key it names;
+   file and key it names; the record copies under ``trained/records/``
+   equal the JAX records;
 2. the port's bf16 forward (``MCTSPlayer.from_checkpoint(...,
    device="cpu")``) against the JAX ``apply_eval`` on the same weights, on
    256 positions after 20 uniform random plies from ``default_rng(0)``: the
@@ -75,6 +79,9 @@ orbax_to_torch = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(orbax_to_torch)
 
 MANIFEST = trained.manifest()
+# the conversion, record and forward tests take the studies' networks too;
+# the variant and int8 tests stay on NAMES
+ALL_NAMES = trained.NAMES + trained.STUDY_NAMES
 POSITIONS, PLIES, VARIANT_POSITIONS, TRUNK_BATCH = 256, 20, 64, 64
 BLOCKS = 10
 
@@ -127,7 +134,7 @@ def top_moves(log_probs, legal):
     return np.where(legal, log_probs, -np.inf).argmax(-1)
 
 
-@pytest.mark.parametrize("name", trained.NAMES)
+@pytest.mark.parametrize("name", ALL_NAMES)
 def test_committed_file_is_a_fresh_conversion(name):
     entry = MANIFEST["networks"][name]
     path = trained.checkpoint(name)
@@ -161,7 +168,7 @@ def quoted(record):
     return value
 
 
-@pytest.mark.parametrize("name", trained.NAMES)
+@pytest.mark.parametrize("name", ALL_NAMES)
 def test_manifest_quotes_the_jax_records(name):
     records = MANIFEST["networks"][name]["records"]
     assert records
@@ -182,7 +189,7 @@ def test_manifest_quotes_the_jax_records(name):
             assert r["wins"] + r["losses"] + r["draws"] == r["games"]
 
 
-@pytest.mark.parametrize("name", trained.NAMES)
+@pytest.mark.parametrize("name", ALL_NAMES)
 def test_bf16_forward_matches_jax(name):
     variables = jax_checkpoint(name)[0]
     feats, legal = positions()
@@ -218,6 +225,19 @@ def test_variant_agrees_with_the_bf16_forward(variant, name):
     assert np.all(np.isfinite(lp.numpy())) and np.all(np.isfinite(v.numpy()))
     assert (top_moves(lp.numpy(), legal) == top_moves(lp_ref, legal)).mean() >= 0.9
     assert np.corrcoef(v.numpy()[:, 0], v_ref[:, 0])[0, 1] > 0.95
+
+
+@pytest.mark.parametrize("record", ["elo_ladder", "symmetry_ablation"])
+def test_shipped_record_copies_are_the_jax_records(record):
+    with open(os.path.join(REPO, "results", f"{record}.json")) as f:
+        want = json.load(f)
+    got = trained.study_record(record)
+    assert got["pairs"] == want["pairs"] and got == want
+
+
+def test_every_shipped_network_has_a_ladder_name():
+    names = [e["ladder_name"] for e in MANIFEST["networks"].values()]
+    assert sorted(MANIFEST["networks"]) == sorted(ALL_NAMES) and len(set(names)) == len(names)
 
 
 @functools.cache
