@@ -24,6 +24,7 @@ import torch
 from ..ops.bitboard import OthelloEngine
 from ..parallel.mesh import all_gather_leading, shard_rows
 from ..train.self_play import max_game_length
+from ..utils import profiling
 from ..utils.device import resolve_device
 from .players import Player, uniform_legal
 
@@ -76,7 +77,8 @@ class Arena:
         plays the first k plies uniformly at random over the legal moves,
         for both sides, so that deterministic pairs (temperature-0 MCTS
         against Greedy) play diverse games instead of one game per
-        colour."""
+        colour. Each ply's liveness test is a host sync, the span
+        ``sync.live`` while tracing."""
         eng, dev = self.engine, self.device
         t0 = time.time()
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -86,7 +88,7 @@ class Arena:
         p1_black = games % 2 == 0
         for _ in range(max_game_length(eng.size)):
             live = ~eng.is_terminal(boards)
-            if not bool(live.any()):
+            if not profiling.host_bool(live.any(), "sync.live"):
                 break
             # a player's rows only in a sharded match: players written for
             # whole matches keep act(boards, generator)

@@ -28,6 +28,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from ..utils import profiling
 from . import bits
 
 FULL = 0xFFFFFFFFFFFFFFFF
@@ -199,6 +200,7 @@ class OthelloEngine:
         return torch.cat([sq, ~sq.any(dim=-1, keepdim=True)], dim=-1)
 
     # -- stepping -------------------------------------------------------------
+    @profiling.spanned("engine.step")
     def step(self, state: Board, action: torch.Tensor,
              pass_legal: torch.Tensor = None) -> Tuple[Board, torch.Tensor]:
         """Apply ``action`` (...) in [0, S*S]; returns ``(new, valid)``.
@@ -244,6 +246,7 @@ class OthelloEngine:
         return bits.popcount(state.me), bits.popcount(state.opp)
 
     # -- fused observation ------------------------------------------------------
+    @profiling.spanned("engine.observe")
     def observe(self, state: Board, with_features: bool = False):
         """Both sides' legal floods once, and everything derived from them.
 

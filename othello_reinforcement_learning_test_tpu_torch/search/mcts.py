@@ -24,6 +24,14 @@ root noise of a rank's games is its rows of the draw at the global batch's
 shape (``rows``). That is why the port's ``global`` self-play design needs
 no all-reduced liveness condition, where the JAX program lowers it to one
 under a mesh.
+
+While tracing is on (``utils/profiling.py``), a call is the span
+``mcts.search`` (a new call id); its root's evaluation, noise and tree
+``mcts.root``; each simulation ``mcts.simulation``, with the parts
+``mcts.select``, ``mcts.step_leaf``, ``mcts.evaluate`` (the network) and
+``mcts.backup`` (``masked_probs`` and the expansion and backup). The walk's
+liveness test is the span ``sync.select`` and counts in ``_select.syncs``,
+on or off.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 
 from ..ops.bitboard import Board, OthelloEngine
 from ..parallel.mesh import Rows, draw_rows
+from ..utils import profiling
 
 NO_CHILD = -1
 
@@ -168,9 +177,10 @@ def _select(tree: Tree, c_puct: float, cond_interval: int = 1) -> _Selection:
     """Walk every game from its root by PUCT until an unexpanded edge or a
     terminal node, in lockstep; the loop runs until no walker is left.
 
-    The liveness test is a host sync; with ``cond_interval`` k it runs once
-    every k walk steps. A step is a no-op for finished walkers (every
-    update is gated on ``walking``), so the result is the same for any k."""
+    The liveness test is a host sync, counted in ``_select.syncs``; with
+    ``cond_interval`` k it runs once every k walk steps. A step is a no-op
+    for finished walkers (every update is gated on ``walking``), so the
+    result is the same for any k."""
     B, n_slots = tree.visit.shape
     dev = tree.visit.device
     path = torch.full((B, n_slots), -1, dtype=torch.int64, device=dev)
@@ -184,7 +194,7 @@ def _select(tree: Tree, c_puct: float, cond_interval: int = 1) -> _Selection:
     stop_term = tree.terminal[:, 0].clone()
     walking = ~stop_term & (action == NO_CHILD)
     steps = 0
-    while steps % cond_interval or bool(walking.any()):
+    while steps % cond_interval or profiling.host_bool(walking.any(), "sync.select", _select):
         steps += 1
         act = act_star.gather(1, node[:, None])[:, 0]
         child = child_star.gather(1, node[:, None])[:, 0]
@@ -210,6 +220,9 @@ def _select(tree: Tree, c_puct: float, cond_interval: int = 1) -> _Selection:
         path_len=depth + 1,
         is_term_leaf=is_term,
     )
+
+
+_select.syncs = 0
 
 
 def _expand_and_backup(tree: Tree, sel: _Selection, child_me: torch.Tensor,
@@ -289,12 +302,17 @@ def _simulate(engine: OthelloEngine, net: Net, tree: Tree, zeros: torch.Tensor,
     one network call for every game, expand and back up. Its parts are
     :func:`_select`, :func:`_step_leaf`, ``net``, :func:`masked_probs` and
     :func:`_expand_and_backup`, which ``profilers/profile_mcts_parts.py``
-    times one by one."""
-    sel = _select(tree, c_puct, cond_interval)
-    child, c_legal, c_term, c_win, feats = _step_leaf(engine, tree, sel, zeros)
-    log_p, v = net(feats)
-    _expand_and_backup(tree, sel, child.me, child.opp, masked_probs(log_p, c_legal),
-                       c_legal, c_term, c_win, v[:, 0])
+    times one by one, each inside its span while tracing."""
+    with profiling.span("mcts.simulation"):
+        with profiling.span("mcts.select"):
+            sel = _select(tree, c_puct, cond_interval)
+        with profiling.span("mcts.step_leaf"):
+            child, c_legal, c_term, c_win, feats = _step_leaf(engine, tree, sel, zeros)
+        with profiling.span("mcts.evaluate"):
+            log_p, v = net(feats)
+        with profiling.span("mcts.backup"):
+            _expand_and_backup(tree, sel, child.me, child.opp, masked_probs(log_p, c_legal),
+                               c_legal, c_term, c_win, v[:, 0])
 
 
 def _init_tree(n_slots: int, me: torch.Tensor, opp: torch.Tensor,
@@ -355,34 +373,36 @@ def search(engine: OthelloEngine, net: Net, boards: Board, num_simulations: int,
         raise ValueError("search expects a single batch axis")
     n_slots = num_simulations + 1
 
-    if root_cache is None:
-        legal0, term0, win0, feats = engine.observe(boards, with_features=True)
-        log_p, v0 = net(feats)
-        prior0 = masked_probs(log_p, legal0)
-        win0 = win0.to(torch.float32)
-        root_value0 = torch.where(term0, win0, v0[:, 0])
-    else:
-        prior0, root_value0, legal0, term0, win0 = root_cache
-    if add_noise:
-        prior0 = add_dirichlet_noise(generator, prior0, legal0, dirichlet_alpha,
-                                     dirichlet_epsilon, rows)
+    with profiling.span("mcts.search", call=True):
+        with profiling.span("mcts.root"):
+            if root_cache is None:
+                legal0, term0, win0, feats = engine.observe(boards, with_features=True)
+                log_p, v0 = net(feats)
+                prior0 = masked_probs(log_p, legal0)
+                win0 = win0.to(torch.float32)
+                root_value0 = torch.where(term0, win0, v0[:, 0])
+            else:
+                prior0, root_value0, legal0, term0, win0 = root_cache
+            if add_noise:
+                prior0 = add_dirichlet_noise(generator, prior0, legal0, dirichlet_alpha,
+                                             dirichlet_epsilon, rows)
 
-    tree = _init_tree(n_slots, boards.me, boards.opp, prior0, legal0, term0,
-                      win0, root_value0)
-    zeros = torch.zeros_like(boards.move_count)
-    for _ in range(num_simulations):
-        _simulate(engine, net, tree, zeros, c_puct, cond_interval)
+            tree = _init_tree(n_slots, boards.me, boards.opp, prior0, legal0, term0,
+                              win0, root_value0)
+            zeros = torch.zeros_like(boards.move_count)
+        for _ in range(num_simulations):
+            _simulate(engine, net, tree, zeros, c_puct, cond_interval)
 
-    root_cv = tree.child_visit[:, 0]
-    q_values = torch.where(root_cv > 0,
-                           -tree.child_value_sum[:, 0] / root_cv.clamp_min(1), 0.0)
-    result = SearchResult(
-        visit_counts=root_cv.to(torch.float32),
-        root_value=tree.value_sum[:, 0] / tree.visit[:, 0].clamp_min(1),
-        q_values=q_values,
-        legal=legal0,
-        root_terminal=term0,
-    )
+        root_cv = tree.child_visit[:, 0]
+        q_values = torch.where(root_cv > 0,
+                               -tree.child_value_sum[:, 0] / root_cv.clamp_min(1), 0.0)
+        result = SearchResult(
+            visit_counts=root_cv.to(torch.float32),
+            root_value=tree.value_sum[:, 0] / tree.visit[:, 0].clamp_min(1),
+            q_values=q_values,
+            legal=legal0,
+            root_terminal=term0,
+        )
     return (result, tree) if return_tree else result
 
 

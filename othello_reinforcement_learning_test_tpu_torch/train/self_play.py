@@ -35,6 +35,7 @@ from ..ops.bitboard import OthelloEngine
 from ..parallel import mesh
 from ..parallel.mesh import Rows, draw_rows, shard_rows
 from ..search import mcts
+from ..utils import profiling
 from ..utils.device import resolve_device
 
 
@@ -100,7 +101,8 @@ def play_games(engine: OthelloEngine, net: mcts.Net, num_games: int,
     draws the root noise and the sampled actions. ``cond_interval``: test
     liveness every that many plies and walk steps (the same results for
     any value). ``shard=(rank, world)``: play only that rank's slice of the
-    ``num_games`` (see the module docstring)."""
+    ``num_games`` (see the module docstring). Each liveness test is a host
+    sync, the span ``sync.live`` while tracing."""
     # Root-eval reuse needs the sampled action's child to be expanded, which
     # holds only when at least one simulation ran.
     if num_simulations < 1:
@@ -129,7 +131,7 @@ def play_games(engine: OthelloEngine, net: mcts.Net, num_games: int,
 
     for t in range(T):
         live = ~cache.terminal
-        if t % cond_interval == 0 and not bool(live.any()):
+        if t % cond_interval == 0 and not profiling.host_bool(live.any(), "sync.live"):
             break
         res, tree = mcts.search(
             engine, net, boards, num_simulations, c_puct=c_puct,

@@ -1,33 +1,44 @@
-"""Profiling and tracing utilities.
+"""Spans, the walk's host-sync counter and the network's FLOPs.
 
-Port of ``othello_reinforcement_learning_test_tpu/utils/profiling.py``:
+- :class:`PhaseTimer`: spans kept in memory, each with its name, its
+  parent's index, the id of the search call it belongs to and its start
+  and end in ns on the clock ``torch.profiler`` stamps host events with
+  (``time.time_ns``), so they can be laid over a device trace; a phase may
+  fence device work first (kernels are launched asynchronously, so without
+  a fence time lands in the wrong phase). ``summary()`` gives each name's
+  count, total and self time.
+- :func:`tracing` turns the program's own spans on (:func:`span`,
+  :func:`spanned`: ``mcts.*`` in the search, ``engine.*`` in the engine,
+  ``sync.*`` at the host reads) and yields the recorder. Off, a span costs
+  one boolean test: no clock, no allocation, no ``record_function``. No
+  program span fences.
+- :func:`host_bool`: the one explicit host read of the search and ply
+  loops, inside its ``sync.*`` span; the walk's reads also count in
+  ``mcts._select.syncs``, reset by whoever reads it.
+- :func:`model_flops_per_board`, as in the JAX package.
 
-- :class:`PhaseTimer`: per-phase wall timers whose fence waits for the
-  device (kernels are launched asynchronously, so without it time lands in
-  the wrong phase);
-- :func:`trace`: a ``torch.profiler`` trace of the CPU and CUDA activity,
-  written as a Chrome trace (``chrome://tracing`` or Perfetto);
-- :func:`speed_of_light`: measured throughput beside the compute bound of
-  the device's dense bf16 peak, with :func:`model_flops_per_board`.
-
-The JAX package's table of TPU peaks has no counterpart: the only peak
-here is the H100's.
+The recorder is for one thread: the spans of another would nest wrongly.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
+import functools
 import time
 from collections import defaultdict
-from typing import Dict, Optional, Union
+from typing import Dict, Iterator, List, NamedTuple, Optional
 
 import torch
 
-# dense bf16 tensor-core peak, FLOP/s, from NVIDIA's H100 data sheet (half
-# its figures with sparsity): PCIe 756, NVL 835.5, SXM 989.4 TFLOP/s. The
-# SXM part reports itself as "NVIDIA H100 80GB HBM3", so it is the last match
-H100_BF16_FLOPS = {"h100 pcie": 756e12, "h100 nvl": 835.5e12, "h100": 989.4e12}
+CAPACITY = 1 << 20  # spans a recorder keeps; later ones are dropped and counted
+
+
+class Span(NamedTuple):
+    name: str
+    parent: int  # index of the enclosing span in the recorder's list; -1 for none
+    call: int  # id of the search call it belongs to; 0 outside any
+    start_ns: int  # time.time_ns(), the clock of torch.profiler's host events
+    end_ns: int  # -1 while open
 
 
 def _synchronize(fence) -> None:
@@ -42,98 +53,161 @@ def _synchronize(fence) -> None:
         torch.cuda.synchronize(device)
 
 
+class _Phase:
+    """One span of a :class:`PhaseTimer` (a context manager)."""
+
+    __slots__ = ("timer", "name", "call", "fence")
+
+    def __init__(self, timer: "PhaseTimer", name: str, call: bool = False, fence=None):
+        self.timer, self.name, self.call, self.fence = timer, name, call, fence
+
+    def __enter__(self):
+        self.timer._open(self.name, self.call)
+
+    def __exit__(self, *exc):
+        if self.fence is not None:
+            _synchronize(self.fence)
+        self.timer._close()
+        return False
+
+
 class PhaseTimer:
-    """Accumulates wall time per named phase; fences device work."""
+    """Spans kept in memory, at most :data:`CAPACITY` of them; those past
+    it are dropped and counted in ``dropped``."""
 
     def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
+        self.reset()
 
-    @contextlib.contextmanager
-    def phase(self, name: str, fence=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if fence is not None:
-                _synchronize(fence)
-            dt = time.perf_counter() - t0
-            self.totals[name] += dt
-            self.counts[name] += 1
+    def reset(self) -> None:
+        self._rows: List[list] = []  # a Span's fields per span, in the order they opened
+        self.dropped = 0
+        self._open_rows: List[int] = []  # the open spans' rows, innermost last; -1 dropped
+        self._calls = 0
+
+    @property
+    def spans(self) -> List[Span]:
+        return [Span(*row) for row in self._rows]
+
+    def phase(self, name: str, fence=None) -> _Phase:
+        """A context manager that records the span ``name``, nested in the
+        span open around it, after waiting for the device work behind
+        ``fence`` at its end."""
+        return _Phase(self, name, fence=fence)
+
+    def _open(self, name: str, call: bool) -> None:
+        rows, open_rows = self._rows, self._open_rows
+        if len(rows) >= CAPACITY:
+            self.dropped += 1
+            open_rows.append(-1)
+            return
+        parent = open_rows[-1] if open_rows else -1
+        if call:
+            self._calls += 1
+            call_id = self._calls
+        else:
+            call_id = rows[parent][2] if parent >= 0 else 0
+        open_rows.append(len(rows))
+        rows.append([name, parent, call_id, time.time_ns(), -1])
+
+    def _close(self) -> None:
+        end = time.time_ns()
+        row = self._open_rows.pop()
+        if row >= 0:
+            self._rows[row][4] = end
 
     def summary(self) -> Dict[str, Dict[str, float]]:
-        return {
-            k: {
-                "total_s": self.totals[k],
-                "count": self.counts[k],
-                "mean_s": self.totals[k] / max(self.counts[k], 1),
-            }
-            for k in self.totals
-        }
+        """Each name's closed spans: count, total, self (less the time its
+        child spans cover) and mean seconds."""
+        spans = self.spans
+        child_ns = [0] * len(spans)
+        for s in spans:
+            if s.parent >= 0 and s.end_ns >= 0:
+                child_ns[s.parent] += s.end_ns - s.start_ns
+        out: Dict[str, Dict[str, float]] = defaultdict(
+            lambda: {"total_s": 0.0, "self_s": 0.0, "count": 0})
+        for s, inner in zip(spans, child_ns):
+            if s.end_ns >= 0:
+                row = out[s.name]
+                row["count"] += 1
+                row["total_s"] += (s.end_ns - s.start_ns) / 1e9
+                row["self_s"] += (s.end_ns - s.start_ns - inner) / 1e9
+        for row in out.values():
+            row["mean_s"] = row["total_s"] / row["count"]
+        return dict(out)
 
     def report(self) -> str:
-        lines = ["phase              total      calls     mean"]
+        lines = ["phase                total       self    calls     mean"]
         for k, v in sorted(self.summary().items(), key=lambda kv: -kv[1]["total_s"]):
-            lines.append(
-                f"{k:18s} {v['total_s']:8.2f}s {v['count']:8d} "
-                f"{v['mean_s'] * 1e3:8.2f}ms"
-            )
+            lines.append(f"{k:18s} {v['total_s']:8.3f}s {v['self_s']:8.3f}s {v['count']:8d} "
+                         f"{v['mean_s'] * 1e3:8.3f}ms")
+        if self.dropped:
+            lines.append(f"({self.dropped} spans dropped past {CAPACITY})")
         return "\n".join(lines)
 
 
-@contextlib.contextmanager
-def trace(log_dir: str, enabled: bool = True):
-    """A ``torch.profiler`` trace of the block, CUDA activity included when
-    there is a card, written to ``<log_dir>/trace.json`` (Chrome format).
-    Yields the profiler, or ``None`` when disabled."""
-    if not enabled:
-        yield None
-        return
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+_on = False  # whether the program's spans are recorded
+_recorder: Optional[PhaseTimer] = None
 
 
-def device_flops_per_sec(
-        device: Optional[Union[str, torch.device]] = None) -> Optional[float]:
-    """Dense bf16 peak FLOP/s of an H100, matched on the card's name;
-    ``None`` for any other device (the CPU included)."""
-    device = torch.device(device if device is not None
-                          else "cuda" if torch.cuda.is_available() else "cpu")
-    if device.type != "cuda":
+class _Off:
+    """The span while tracing is off: does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
         return None
-    name = torch.cuda.get_device_name(device).lower()
-    for key, peak in H100_BF16_FLOPS.items():
-        if key in name:
-            return peak
-    return None
+
+    def __exit__(self, a, b, c):
+        return False
 
 
-def speed_of_light(
-    env_steps_per_sec: float,
-    net_boards_per_sec: float,
-    model_flops_per_board: float,
-    device: Optional[Union[str, torch.device]] = None,
-) -> str:
-    """Compare measured throughput to simple upper bounds."""
-    peak = device_flops_per_sec(device)
-    name = device if device is not None else (
-        torch.cuda.get_device_name() if torch.cuda.is_available() else "cpu")
-    lines = [f"device: {name}"]
-    lines.append(f"env steps/s (measured):     {env_steps_per_sec:,.0f}")
-    lines.append(f"net boards/s (measured):    {net_boards_per_sec:,.0f}")
-    if peak:
-        bound = peak / max(model_flops_per_board, 1.0)
-        frac = net_boards_per_sec / bound if bound else 0.0
-        lines.append(
-            f"net boards/s (compute bound {peak/1e12:.0f} TFLOP/s bf16): "
-            f"{bound:,.0f}  -> {frac:.1%} of peak"
-        )
-    return "\n".join(lines)
+_OFF = _Off()
+
+
+def span(name: str, call: bool = False):
+    """A context manager: the program's span ``name`` (a new search call
+    with ``call``) while :func:`tracing` is on, nothing otherwise."""
+    if not _on:
+        return _OFF
+    return _Phase(_recorder, name, call)
+
+
+def spanned(name: str):
+    """Decorator: each call of the function inside the span ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            if not _on:
+                return fn(*args, **kwargs)
+            with _Phase(_recorder, name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+@contextlib.contextmanager
+def tracing() -> Iterator[PhaseTimer]:
+    """Record the program's spans into a new :class:`PhaseTimer`, which it
+    yields, until the block ends."""
+    global _on, _recorder
+    outer = _on, _recorder
+    _recorder = PhaseTimer()
+    _on = True
+    try:
+        yield _recorder
+    finally:
+        _on, _recorder = outer
+
+
+def host_bool(flag: torch.Tensor, name: str, site=None) -> bool:
+    """``bool(flag)``, a host read that waits for the device work before it,
+    inside the span ``name`` (``sync.*``) while tracing; counted in
+    ``site.syncs`` where ``site``, the function making the read, keeps a
+    count."""
+    if site is not None:
+        site.syncs += 1
+    with span(name):
+        return bool(flag)
 
 
 def model_flops_per_board(num_blocks: int = 10, num_filters: int = 128,

@@ -259,7 +259,7 @@ def test_model_flops_per_board_matches_jax(arch):
     assert tprofiling.model_flops_per_board(*arch) == jprofiling.model_flops_per_board(*arch)
 
 
-def test_profiling_on_the_cpu(tmp_path):
+def test_profiling_on_the_cpu():
     timer = tprofiling.PhaseTimer()
     x = torch.ones(3)
     for _ in range(2):
@@ -269,12 +269,7 @@ def test_profiling_on_the_cpu(tmp_path):
         pass
     s = timer.summary()
     assert s["a"]["count"] == 2 and s["b"]["count"] == 1 and "a " in timer.report()
-    with tprofiling.trace(str(tmp_path)):
-        torch.ones(4).sum()
-    assert json.loads((tmp_path / "trace.json").read_text())
-    assert tprofiling.device_flops_per_sec("cpu") is None
-    text = tprofiling.speed_of_light(10.0, 20.0, 1e6, device="cpu")
-    assert "compute bound" not in text and "20" in text
+    assert s["a"]["self_s"] == s["a"]["total_s"] > 0
 
 
 # -- the parser ------------------------------------------------------------------

@@ -39,6 +39,13 @@ with zero channels); the forward at 8x8 x 256 and 6x6 x 40 as at 6x6 x 64;
 a shape outside the set the kernels take (past 256 channels, other board
 sides) is refused before a launch. A resume of the trainer on the card,
 across a wrap of its ring, equals the uninterrupted run bit for bit.
+
+The program's spans (``utils/profiling.py``) and the device records of a
+``torch.profiler`` session share a clock: a span around a kernel and the
+wait for it holds the kernel's record, and the shortest edge on each side,
+which bounds any offset between the clocks, is within 50 us. Over one
+search of 1,024 games the walk's sync counter (``mcts._select.syncs``) is
+at least the count of PyTorch's own sync checks.
 """
 
 import numpy as np
@@ -94,6 +101,8 @@ from othello_reinforcement_learning_test_tpu_torch.models.fused_resnet import Fu
 from othello_reinforcement_learning_test_tpu_torch.models.resnet import OthelloResNet
 from othello_reinforcement_learning_test_tpu_torch.ops import fused_step
 from othello_reinforcement_learning_test_tpu_torch.ops.bitboard import get_engine
+from othello_reinforcement_learning_test_tpu_torch.search import mcts
+from othello_reinforcement_learning_test_tpu_torch.utils import profiling
 
 
 @pytest.fixture(scope="module")
@@ -604,3 +613,69 @@ def test_resume_across_a_ring_wrap_on_the_card(tmp_path):
     a, b, resumed_plies = run_and_resume(tmp_path, "auto")
     assert a.device.type == "cuda"
     assert_resume_equal(a, b, resumed_plies)
+
+
+@pytest.mark.cuda
+def test_program_spans_share_the_device_trace_clock():
+    """Spans around a sleep kernel and the wait for it hold its device
+    record: each kernel starts after its span opens and ends before it
+    closes. An offset between the clocks would move every opening edge one
+    way and every closing edge the other; the host's launch and wait only
+    lengthen them, so the shortest of each bounds the offset: both within
+    50 us."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the device trace is the card's")
+    from torch.profiler import ProfilerActivity, profile
+
+    probes = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(256):  # a session loses device records at its start
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        with profiling.tracing() as rec:
+            for _ in range(probes):
+                with profiling.span("probe.sleep"):
+                    torch.cuda._sleep(2_000_000)
+                    torch.cuda.synchronize()
+    kernels = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                     for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == torch.autograd.DeviceType.CUDA
+                     and "spin_kernel" in e.name() and e.duration_ns() > 100_000)
+    assert len(kernels) == len(rec.spans) == probes
+    opened = [k0 - s.start_ns for s, (k0, _) in zip(rec.spans, kernels)]
+    closed = [s.end_ns - k1 for s, (_, k1) in zip(rec.spans, kernels)]
+    print("span opened before its kernel (us):", [round(t / 1e3, 1) for t in opened])
+    print("span closed after its kernel (us):", [round(t / 1e3, 1) for t in closed])
+    assert min(opened) >= 0 and min(closed) >= 0
+    assert min(opened) <= 50_000 and min(closed) <= 50_000
+
+
+@pytest.mark.cuda
+def test_select_sync_counter_covers_pytorchs_own_count(fused):
+    """One search of 1,024 games through the int8 tower: the syncs the walk
+    counts are at least those PyTorch's sync checks report."""
+    import warnings
+
+    eng = get_engine(8)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    boards = eng.initial_state((1024,), device="cuda")
+    for _ in range(6):  # roots a few random plies in
+        legal = eng.legal_actions(boards).to(torch.float32)
+        boards, _ = eng.step(boards, torch.multinomial(legal, 1, generator=gen)[:, 0])
+
+    def search():
+        return mcts.search(eng, fused, boards, 64, c_puct=1.25, add_noise=True, generator=gen)
+
+    search()
+    torch.cuda.synchronize()
+    mcts._select.syncs = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            search()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    reported = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+    print(f"walk syncs counted {mcts._select.syncs}, PyTorch reports {reported}")
+    assert reported > 0 and mcts._select.syncs >= reported
