@@ -7,10 +7,10 @@ Imports torch, numpy and the port package only (no JAX). Phases, one line
 each as they finish:
 
 1. device        card name and ``nvidia-smi`` name / power limit;
-2. build         the nine kernels (``trunk_int8_dx3``, ``trunk_matmul9``,
+2. build         the ten kernels (``trunk_int8_dx3``, ``trunk_matmul9``,
                  ``trunk_int8``, ``random_step``, ``trunk_wide``,
                  ``trunk_int8_m9``, ``trunk_int8_patch``,
-                 ``trunk_int8_flat``, ``trunk_int8_dxcat``) built from
+                 ``trunk_int8_flat``, ``trunk_int8_dxcat``, ``leaf_step``) built from
                  ``csrc/`` with nvcc, the trunks at 8x8 boards and 128
                  channels, and beside them the 30 libraries of phase
                  ``shapes`` (each trunk source is a template on the board
@@ -84,7 +84,10 @@ each as they finish:
                  boards and ``live``; and ``play_random_games``
                  through the kernel against the plain loop on the CPU fed
                  the same words (16,384 games): equal final boards, steps
-                 and plies;
+                 and plies. Then ``leaf_step`` against ``leaf_step_plain``
+                 on the CPU, every output bit for bit, on 1,024 games of
+                 65-slot trees (``leaf_step.sample_case``) for each size and
+                 rule set, one launch each;
 4. engine_check  random plies on CUDA and on the CPU: bit-identical boards;
 5. search_check  ``play_games`` on the card and on the CPU with a
                  deterministic stub network (its log-softmax taken in
@@ -100,7 +103,8 @@ each as they finish:
                  port's g++ build of ``csrc/othello_native.cpp``) vs Greedy;
 6. selfplay      ``play_games`` at 10x128 with ``int8_dx3``: 1024 games,
                  25 simulations, c_puct 1.0, temperature threshold 15, root
-                 noise on; trunk launches must be 20 per network forward and
+                 noise on; trunk launches must be 20 per network forward,
+                 ``leaf_step`` launches one per simulation (plies x 25), and
                  the trajectories must be sane;
 7. train_step_check  one SGD step at 10x128 from the trainer's initial
                  weights, f32 compute, TF32 off, on one fixed batch of 1024
@@ -349,7 +353,11 @@ each as they finish:
                  wall and device time at 64, 40 and 1024, and ``int8_dx3``
                  at B=64; ``random_step`` and its plain version for one
                  ply of 4,194,304 games (CUDA events; their outputs must be
-                 bit-equal); the bounds, launches per forward.
+                 bit-equal); ``leaf_step`` at B=1024 on 65-slot trees: its
+                 wall a call over a stream of calls, device time
+                 (torch.profiler), host time a launch, the plain version's
+                 wall and the bound from its note's bytes and operations;
+                 the bounds, launches per forward.
 
 Then one ``{"kernels": [...]}`` JSON line (each kernel with the shapes it
 was checked at: [board side, channels], ``random_step`` its board sides;
@@ -388,6 +396,7 @@ from othello_reinforcement_learning_test_tpu_torch import (
 from othello_reinforcement_learning_test_tpu_torch.apps.web.game_manager import GameManager
 from othello_reinforcement_learning_test_tpu_torch.apps.web.server import make_server
 from othello_reinforcement_learning_test_tpu_torch.kernels import build
+from othello_reinforcement_learning_test_tpu_torch.kernels import leaf_step as ls
 from othello_reinforcement_learning_test_tpu_torch.kernels import random_step as rs
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8 import (
     trunk_int8,
@@ -486,6 +495,16 @@ RANDOM_STEP_OPS = 3 * 8 * 7 * 4
 # random words read, one int32 live written
 RANDOM_STEP_BYTES = 2 * 8 + 2 * 8 + 2 * 4 + 4
 RANDOM_GAMES = 4194304  # bench.py's random-mode batch with the kernel
+# leaf_step.cu's note: a game's 32-bit operations (the move's flips and both
+# sides' legal squares, random_step's three floods) and bytes at 8x8: parent
+# index and action, parent words, pass legality and move count read; child
+# words, move count and passed, legal mask, terminal and winner, features
+# written
+LEAF_STEP_OPS = 3 * 8 * 7 * 4
+LEAF_STEP_BYTES = (2 * 8 + 2 * 8 + 1 + 4) + (2 * 8 + 4 + 1 + 65 + 1 + 4 + 3 * 64 * 4)
+LEAF_SLOTS = 65  # tree slots a game: the root and one a simulation at 64
+LEAF_HOST_REPS = 2000
+LEAF_SOURCE = "othello_reinforcement_learning_test_tpu_torch/csrc/leaf_step.cu"
 # the int8_dx3 and trunk_int8 checks' batches: 1040 gives bg 16 with more
 # games than two a CTA, 267 an odd count, 256 the cli phase's self-play
 INT8_BATCHES = (GAMES, 1040, 267, 256, 24, 3, 1)
@@ -1346,6 +1365,71 @@ def check_random_step(dev) -> float:
     check(int((d != 0).sum()) == 0 and (steps_k, plies_k) == (steps_p, plies_p),
           "play_random_games through the kernel == the plain loop on the CPU")
     return err
+
+
+def check_leaf_step(dev) -> None:
+    """leaf_step against leaf_step_plain on the CPU, every output, on 1,024
+    games of 65-slot trees for each size and rule set (the trees of
+    ``leaf_step.sample_case``: ends of the game, pass-only parents, invalid
+    actions)."""
+    for size in (8, 6, 4):
+        for rules in ("reference", "standard"):
+            eng = get_engine(size, rules)
+            case = ls.sample_case(size, rules, GAMES, LEAF_SLOTS, seed=size, device=dev)
+            before = ls.leaf_step.launches
+            child, *rest = ls.leaf_step(eng, *case)
+            child_p, *rest_p = ls.leaf_step_plain(eng, *(t.cpu() for t in case))
+            differing = sum(int((a.cpu() != b).sum()) for a, b in
+                            zip((*child, *rest), (*child_p, *rest_p)))
+            phase("kernel_check", kernel="leaf_step", size=size, rules=rules, games=GAMES,
+                  differing=differing, launches=ls.leaf_step.launches - before)
+            check(differing == 0 and ls.leaf_step.launches == before + 1,
+                  f"leaf_step == plain version, size {size} {rules}, one launch")
+
+
+def time_leaf_step(dev) -> dict:
+    """The leaf step at the search's shape (B=GAMES, 8x8, LEAF_SLOTS-slot
+    trees): the kernel's wall a call over a stream of calls (CUDA events;
+    the host's launch cost where it exceeds the device's), its device time
+    (CUDA events around one call on a busy stream, and torch.profiler's
+    time a traced launch), the host time of one launch (median and tenth
+    percentile of LEAF_HOST_REPS), the plain version's wall, and the bound
+    from the note's bytes and operations."""
+    eng = get_engine(8)
+    case = ls.sample_case(8, "reference", GAMES, LEAF_SLOTS, seed=SEED, device=dev)
+
+    def step():
+        return ls.leaf_step(eng, *case)
+
+    kernel_ms = time_ms(step, reps=200, warmup=20)
+    device_ms = event_device_ms(step, reps=20)["device_ms"]
+    # late in the run the profiler may keep only some of the launches, so
+    # its time is taken a traced launch
+    profiled = 50
+    traced = trunk_device_ms(step, ("leaf_step_kernel",), reps=profiled)
+    n_traced = round(traced.get("device_launches_per_forward", 0) * profiled)
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(LEAF_HOST_REPS):
+        t0 = time.perf_counter()
+        step()
+        host.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    host_us = np.percentile(np.array(host) * 1e6, [50, 10])
+    plain_ms = time_ms(lambda: ls.leaf_step_plain(eng, *case), reps=20)
+    (child, *rest), (child_p, *rest_p) = step(), ls.leaf_step_plain(eng, *case)
+    check(all(torch.equal(a, b) for a, b in zip((*child, *rest), (*child_p, *rest_p))),
+          "timed leaf_step == plain version")
+    t_bytes = GAMES * LEAF_STEP_BYTES / BYTES_PER_S * 1e3
+    t_ops = GAMES * LEAF_STEP_OPS / INT32_OPS_PER_S * 1e3
+    bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return {"kernel_ms": kernel_ms, "device_ms": device_ms, "device_by": "cuda events",
+            "device_ms_per_traced_launch": traced["device_ms"] * profiled / n_traced
+            if n_traced else None, "launches_traced": n_traced, "launches_profiled": profiled,
+            "host_us_median": float(host_us[0]), "host_us_p10": float(host_us[1]),
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes_ms": t_bytes, "operations_ms": t_ops, "ops_per_game": LEAF_STEP_OPS,
+            "bytes_per_game": LEAF_STEP_BYTES}
 
 
 def stub_weights(size: int, seed: int = 0) -> dict:
@@ -3158,6 +3242,7 @@ def main() -> int:
         check_wide(FusedInference(model_t, variant="wide"), feats, "flax_init", True))
     variants = check_int8_variants(model, feats)
     step_max_abs_err = check_random_step(dev)
+    check_leaf_step(dev)
 
     # engine: the same random plies on the card and on the CPU
     n_games, n_plies = 512, 130
@@ -3191,6 +3276,7 @@ def main() -> int:
     torch.cuda.synchronize()
     trunk_int8_dx3.launches = 0
     trunk_matmul9.launches = 0
+    ls.leaf_step.launches = 0
     t0 = time.perf_counter()
     traj = play_games(engine, net, GAMES, SIMS, c_puct=1.0, temperature_threshold=15,
                       add_noise=True, seed=SEED, device=dev)
@@ -3203,6 +3289,9 @@ def main() -> int:
     check(trunk_matmul9.launches == 0, "no matmul9 trunk in the int8_dx3 self-play")
     check(launches == layers * forwards, f"launches {launches} == {layers} x forwards {forwards}")
     check(forwards == 1 + plies * SIMS, "one root forward, then one per simulation")
+    leaf_launches = ls.leaf_step.launches
+    check(leaf_launches == plies * SIMS,
+          f"leaf_step launches {leaf_launches} == plies x simulations {plies * SIMS}")
     check(not bool((mask[:, 1:] & ~mask[:, :-1]).any()), "masks are a prefix")
     check(plies < mask.shape[1], "every game finished")
     live_pi = traj.pi.sum(-1)[mask]
@@ -3218,6 +3307,7 @@ def main() -> int:
     phase("selfplay", games=GAMES, simulations=SIMS, seconds=round(seconds, 3),
           games_per_s=round(GAMES / seconds, 3), plies=plies,
           game_plies=int(mask.sum()), forwards=forwards, trunk_launches=launches,
+          leaf_step_launches=leaf_launches,
           black_wins=int((wins > 0).sum()), white_wins=int((wins < 0).sum()),
           draws=int((wins == 0).sum()))
 
@@ -3280,6 +3370,7 @@ def main() -> int:
     step_bound_ms, step_bound_by = ((step_t_ops, "operations") if step_t_ops >= step_t_bytes
                                     else (step_t_bytes, "bytes"))
     del big, big_words, new_k, live_k, new_p, live_p, d
+    leaf = time_leaf_step(dev)
     fused_w = FusedInference(model_t, variant="wide")
     hw, ww, bw = fused_w.stem(feats), fused_w.trunk_w, fused_w.trunk_bias
     wide_ms = time_ms(lambda: trunk_wide(hw, ww, bw), reps=20)
@@ -3361,6 +3452,7 @@ def main() -> int:
           plain_ms=step_plain_ms, bound_ms=step_bound_ms, bound_by=step_bound_by,
           bytes_ms=step_t_bytes, operations_ms=step_t_ops, ops_per_game=RANDOM_STEP_OPS,
           bytes_per_game=RANDOM_STEP_BYTES, library_ms=None)
+    phase("timing", kernel="leaf_step", batch=GAMES, slots=LEAF_SLOTS, **leaf, library_ms=None)
 
     kernels = [{
         "name": "trunk_int8_dx3", "route": "cuda", "source": TRUNK_SOURCE,
@@ -3387,6 +3479,13 @@ def main() -> int:
         "replaces": f"{PALLAS}:127", "launches": variant_launches["trunk_wide"],
         "max_abs_err": wide_max_abs_err, "ms": wide_ms, "plain_ms": wide_plain_ms,
         "bound_ms": m9_bound_ms, "bound_by": m9_bound_by, "library_ms": wide_cudnn_ms,
+    }, {
+        "name": "leaf_step", "route": "cuda", "source": LEAF_SOURCE, "replaces": None,
+        # 0: check_leaf_step and the timing raise on any difference
+        "launches": leaf_launches, "max_abs_err": 0.0, "ms": leaf["kernel_ms"],
+        "device_ms": leaf["device_ms"], "host_us": leaf["host_us_median"],
+        "plain_ms": leaf["plain_ms"], "bound_ms": leaf["bound_ms"], "bound_by": leaf["bound_by"],
+        "library_ms": None,
     }]
     # each kernel's launches on its main path: benchmark_model's, and for
     # int8_dxcat the gated training iteration's
@@ -3405,7 +3504,7 @@ def main() -> int:
         if k["name"] in trained_errs:
             k["max_abs_err_trained"] = trained_errs[k["name"]]
         k["shapes"] = ([[8, NUM_FILTERS]] + shapes_checked.get(k["name"], [])
-                       if k["name"] != "random_step" else [[8], [6], [4]])
+                       if k["name"] not in ("random_step", "leaf_step") else [[8], [6], [4]])
     for variant, row in wide_rows.items():
         k = next(k for k in kernels if k["name"] == row["kernel"])
         key = "ms_8x8x256" if variant != "int8_bf16" else "ms_8x8x256_stage_bf16"

@@ -35,9 +35,10 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # every kernel source, csrc/<name>.cu, in the order chip_smoke.py reports them
 SOURCES = ("trunk_int8_dx3", "trunk_matmul9", "trunk_int8", "random_step", "trunk_wide",
-           "trunk_int8_m9", "trunk_int8_patch", "trunk_int8_flat", "trunk_int8_dxcat")
+           "trunk_int8_m9", "trunk_int8_patch", "trunk_int8_flat", "trunk_int8_dxcat",
+           "leaf_step")
 # the sources that are not trunks, built without a shape
-UNSHAPED = ("random_step",)
+UNSHAPED = ("random_step", "leaf_step")
 # the trunks' shapes: every board side the engine takes, and channel counts
 # up to 256 (past 128 the kernels stream a layer's weights through shared
 # memory; past 256 an int8 wgmma's N, one consumer's 128 channels beside

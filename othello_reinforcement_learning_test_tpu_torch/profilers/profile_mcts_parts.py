@@ -15,7 +15,8 @@ state with ``profilers/common.py``'s harness:
 
 - the select walk, ``_select`` (one host sync a walk step);
 - the parent gather + ``engine.step`` + ``observe(with_features=True)``,
-  ``_step_leaf``;
+  ``_step_leaf`` (on the card one launch of ``kernels/leaf_step.py``'s
+  kernel);
 - the network forward;
 - ``masked_probs``;
 - ``_expand_and_backup``, from a snapshot of the tree restored before each

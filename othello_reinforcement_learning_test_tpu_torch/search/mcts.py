@@ -31,7 +31,9 @@ While tracing is on (``utils/profiling.py``), a call is the span
 ``mcts.select``, ``mcts.step_leaf``, ``mcts.evaluate`` (the network) and
 ``mcts.backup`` (``masked_probs`` and the expansion and backup). The walk's
 liveness test is the span ``sync.select`` and counts in ``_select.syncs``,
-on or off.
+on or off. On the card the leaf step is one kernel launch
+(``kernels/leaf_step.py``, counted in ``leaf_step.launches``), so
+``mcts.step_leaf`` holds no ``engine.*`` span there.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..kernels.leaf_step import leaf_step
 from ..ops.bitboard import Board, OthelloEngine
 from ..parallel.mesh import Rows, draw_rows
 from ..utils import profiling
@@ -285,15 +288,11 @@ def _expand_and_backup(tree: Tree, sel: _Selection, child_me: torch.Tensor,
 
 def _step_leaf(engine: OthelloEngine, tree: Tree, sel: _Selection, zeros: torch.Tensor):
     """Play the selected edge from its parent: ``(child board, legal,
-    terminal, winner, features)``. ``zeros``: (B,) move counts of 0."""
-    parent = Board(me=_rows(tree.board_me, sel.parent),
-                   opp=_rows(tree.board_opp, sel.parent),
-                   move_count=zeros, passed=zeros.to(torch.bool))
-    # the parent's pass legality is cached in the tree, so step skips its
-    # legal-move flood
-    pass_legal = _rows(tree.legal, sel.parent)[:, engine.pass_action]
-    child, _ = engine.step(parent, sel.action, pass_legal=pass_legal)
-    return (child, *engine.observe(child, with_features=True))
+    terminal, winner, features)``. ``zeros``: (B,) move counts of 0. On the
+    card one launch of ``kernels/leaf_step.py``'s kernel; on the CPU the
+    parent's rows, ``engine.step`` and ``engine.observe``."""
+    return leaf_step(engine, tree.board_me, tree.board_opp, tree.legal, sel.parent, sel.action,
+                     zeros)
 
 
 def _simulate(engine: OthelloEngine, net: Net, tree: Tree, zeros: torch.Tensor,

@@ -12,6 +12,11 @@ Without a card every test skips. Tolerances:
   weight tensor rewritten in place;
 - ``random_step``: boards and ``live`` bit-exact against
   ``random_step_plain`` fed the same random words (integer work);
+- ``leaf_step``: every output bit-exact against ``leaf_step_plain`` on the
+  same tree (integer work; the features are 0 and 1), at sizes 8, 6 and 4
+  under both rule sets; one search of 1,024 games through an engine behind
+  a forwarding wrapper launches it once a simulation and equals the same
+  search through the plain version, field by field;
 - ``matmul9``: the whole trunk equal bit for bit to its 20 convs launched
   one by one (no atomics, a fixed summation order); each conv against the
   plain conv on the same input within
@@ -52,6 +57,7 @@ import numpy as np
 import pytest
 import torch
 
+from othello_reinforcement_learning_test_tpu_torch.kernels import leaf_step as ls
 from othello_reinforcement_learning_test_tpu_torch.kernels import random_step as rs
 from othello_reinforcement_learning_test_tpu_torch.kernels.trunk_int8 import (
     trunk_int8,
@@ -284,6 +290,78 @@ def test_play_random_games_kernel_matches_cpu():
         packed.cpu(), None, words=lambda ply: drawn[ply].cpu())
     assert torch.equal(final.cpu().view(torch.int32), final_c.view(torch.int32))
     assert (steps, plies) == (steps_c, plies_c)
+
+
+RULE_SETS = [(size, rules) for size in (8, 6, 4) for rules in ("reference", "standard")]
+
+
+def dirty_allocator():
+    """Leave the caching allocator's small blocks full of nonzero bytes, so
+    that an output the kernel fails to write does not read as zero."""
+    junk = [torch.full((1 << 18,), 0x5A, dtype=torch.uint8, device="cuda") for _ in range(32)]
+    del junk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,rules", RULE_SETS)
+@pytest.mark.parametrize("batch", [1024, 1040, 267, 3, 1])
+def test_leaf_step_matches_plain(batch, size, rules):
+    """Trees with ends of the game (action 0, invalid), parents that can
+    only pass, and invalid actions (``leaf_step.sample_case``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    eng = get_engine(size, rules)
+    case = ls.sample_case(size, rules, batch, 65, seed=batch + size, device="cuda")
+    dirty_allocator()
+    before = ls.leaf_step.launches
+    child, *rest = ls.leaf_step(eng, *case)
+    assert ls.leaf_step.launches == before + 1
+    child_p, *rest_p = ls.leaf_step_plain(eng, *(t.cpu() for t in case))
+    for got, want in zip((*child, *rest), (*child_p, *rest_p)):
+        assert got.is_cuda and got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_search_steps_each_leaf_in_one_launch(fused, monkeypatch):
+    """One search of 1,024 games with root noise through the int8 tower and
+    an engine behind a forwarding wrapper (as ``azbench/run.py`` passes
+    it): one kernel launch a simulation, and the result and tree of the
+    same search through the plain version, field by field."""
+    eng = get_engine(8)
+
+    class Spanned:
+        def __getattr__(self, name):
+            return getattr(eng, name)
+
+        def observe(self, *a, **k):
+            return eng.observe(*a, **k)
+
+        def step(self, *a, **k):
+            return eng.step(*a, **k)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    boards = eng.initial_state((1024,), device="cuda")
+    for _ in range(6):  # roots a few random plies in
+        legal = eng.legal_actions(boards).to(torch.float32)
+        boards, _ = eng.step(boards, torch.multinomial(legal, 1, generator=gen)[:, 0])
+
+    def search():
+        gen.manual_seed(2)
+        return mcts.search(Spanned(), fused, boards, 64, c_puct=1.25, add_noise=True,
+                           generator=gen, return_tree=True)
+
+    before = ls.leaf_step.launches
+    result, tree = search()
+    assert ls.leaf_step.launches == before + 64
+    monkeypatch.setattr(mcts, "leaf_step", ls.leaf_step_plain)
+    result_p, tree_p = search()
+    assert ls.leaf_step.launches == before + 64
+    for got, want in zip(result, result_p):
+        assert torch.equal(got, want)
+    for name in vars(tree):
+        assert torch.equal(getattr(tree, name), getattr(tree_p, name)), name
+    assert int(tree.num_nodes.max()) > 2
 
 
 INT8_KERNELS = {"int8_m9": (trunk_int8_m9, trunk_int8_m9_plain),
